@@ -8,16 +8,28 @@ Phases:
   1. device: no CUDA device means exit 1. Builds the hand-written kernels
      from ``src/repro_torch/kernels/csrc`` (``nvcc``, into ``build/``).
   2. kernels: each kernel against its plain PyTorch version on the card, at
-     the main path's shapes, and timed beside its plain version: the
-     kernel's device time from a profiler trace, and every call (kernel and
-     plain version) between CUDA events; medians of 20-30 runs after
-     warm-up.
-  3. main path: the Trainer on dlrm-rm2 at full width (26 fields, dim 64,
+     the main paths' shapes, and timed beside its plain version and, where
+     one PyTorch call computes the same function, that call: the kernel's
+     device time from a profiler trace, and every call between CUDA
+     events; medians of 20-30 runs after warm-up.
+  3. training: the Trainer on dlrm-rm2 at full width (26 fields, dim 64,
      bottom MLP 13-512-256-64, top MLP 512-512-256-1, bf16 compute, batch
      65,536) with every vocabulary capped at 2^20 rows, saving 4-bit
      adaptive incremental checkpoints every 2 steps into a local store; an
      injected failure; a fresh Trainer restoring on the card and training
-     on through one more save, which is waited for and checked.
+     on through one more save, which is waited for and checked. Its path
+     runs ``quant_pack`` and ``chunk_hash``.
+  4. serving, from that store: the newest chain restored into the
+     ``serve_p99`` bundle (batch 512), about 200 request batches, then a
+     few ``serve_bulk`` batches (262,144); the kernel path's probabilities
+     against the same forward through the plain versions; a
+     ``CheckpointSubscriber`` following the store into an
+     ``EmbeddingServer``, bit-equal to ``restore()``, then catching up on
+     one more training save by its delta alone. Its path runs
+     ``embedding_bag`` and ``dot_interaction``.
+
+Each path's launch counters are set to 0 just before it and read just
+after; every kernel of a path must have launched in it.
 
 The kernel table is printed as one JSON line, then the card's name and
 power limit, then the last line ``{"ok": true, "device": {...}}``. Any
@@ -27,6 +39,7 @@ failed check raises, so the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import os
@@ -41,6 +54,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
 VOCAB_CAP = 1 << 20
+# embedding_bag's large-table check: 33,554,944 x 64 f32 (8.6 GB) holds
+# more than 2^31 values, so its last rows' element offsets pass 2^31
+BIG_ROWS = 33_554_944
 # H100 SXM published peaks (NVIDIA data sheet): the HBM3 rate, and 67 TFLOP/s
 # of f32 outside the tensor cores = 132 SMs x 128 lanes x 2 (an FMA counts
 # two) x the clock, from which the clock below follows. A kernel that fuses
@@ -288,6 +304,7 @@ def phase_kernels():
     log(f"chunk_hash {n_words} words: kernel {ch_ms:.4f} ms (profiler; one "
         f"call between events {ch_call_ms:.4f} ms), plain "
         f"{ch_plain_ms:.4f} ms, bound {ch_bound:.4f} ms ({ch_by})")
+    serve_kernels = check_and_time_serve_kernels(gen, dev)
     return [
         dict(name="quant_pack", route="cuda",
              source="src/repro_torch/kernels/csrc/quant_pack.cu",
@@ -309,13 +326,148 @@ def phase_kernels():
              ms=ch_ms, plain_ms=ch_plain_ms, bound_ms=ch_bound, bound_by=ch_by,
              library_ms=None, call_ms=ch_call_ms,
              mismatch=dict(checks=len(hash_checks), all_equal=True)),
+    ] + serve_kernels
+
+
+def _rotating(fn, args_list):
+    """A call of ``fn`` on the next argument tuple of ``args_list`` each
+    time: with more than the 50 MB L2 in the list, each call reads its
+    inputs from device memory, as a new request batch does."""
+    nxt = itertools.cycle(args_list).__next__
+    return lambda: fn(*nxt())
+
+
+def check_and_time_serve_kernels(gen, dev):
+    """``embedding_bag`` and ``dot_interaction`` against their plain
+    versions on the card, then timed at the serving shapes: batch 512
+    (serve_p99) and 262,144 (serve_bulk), tables of 2^20 x 64 f32 (the
+    capped vocabulary), H = 1; features (B, 27, 64) bf16."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.dot_interaction import ops as di
+    from repro_torch.kernels.embedding_bag import ops as eb
+
+    V, D = VOCAB_CAP, 64
+    table = torch.randn((V, D), generator=gen, device=dev)
+    eb_checks = []
+
+    def check_eb(tab, ids, exact):
+        k = eb.embedding_bag_cuda(tab, ids)
+        p = eb.embedding_bag_torch(tab, ids)
+        err = float((k - p).abs().max()) if k.numel() else 0.0
+        out = dict(shape=[tab.shape[0], tab.shape[1], ids.shape[0], ids.shape[1]],
+                   bit_equal=bool(torch.equal(k, p)), max_abs_err=err)
+        eb_checks.append(out)
+        if exact:
+            check(out["bit_equal"], f"embedding_bag {out}: not bit-equal")
+        else:
+            check(torch.allclose(k, p, rtol=1e-5, atol=1e-5), f"embedding_bag {out}")
+
+    for B in (512, 262144):
+        check_eb(table, torch.randint(0, V, (B, 1), generator=gen, device=dev,
+                                      dtype=torch.int32), exact=True)
+    for v, d, b, h in ((1000, 64, 32, 4), (512, 10, 16, 1), (2048, 200, 8, 7),
+                       (100, 128, 64, 2)):
+        check_eb(torch.randn((v, d), generator=gen, device=dev),
+                 torch.randint(0, v, (b, h), generator=gen, device=dev,
+                               dtype=torch.int32), exact=False)
+    big = torch.randn((BIG_ROWS, D), generator=gen, device=dev)
+    big_ids = torch.randint(BIG_ROWS - 65536, BIG_ROWS, (4096, 1), generator=gen,
+                            device=dev, dtype=torch.int32)
+    big_ids[-1, 0] = BIG_ROWS - 1
+    check_eb(big, big_ids, exact=True)
+    del big, big_ids
+    torch.cuda.empty_cache()
+    log("embedding_bag checks: " + json.dumps(eb_checks))
+
+    di_checks = []
+    for b, f, d, dt in ((512, 27, 64, torch.bfloat16), (262144, 27, 64, torch.bfloat16),
+                        (64, 27, 64, torch.float32), (128, 40, 10, torch.float32),
+                        (32, 8, 16, torch.float32), (256, 14, 128, torch.float32)):
+        x = torch.randn((b, f, d), generator=gen, device=dev).to(dt)
+        k, p = di.dot_interaction_cuda(x), di.dot_interaction_torch(x)
+        out = dict(shape=[b, f, d], dtype=str(dt).split(".")[-1],
+                   max_abs_err=float((k - p).abs().max()),
+                   max_rel_err=float(((k - p).abs() / p.abs().clamp_min(1e-6)).max()))
+        di_checks.append(out)
+        check(torch.allclose(k, p, rtol=1e-4, atol=1e-4), f"dot_interaction {out}")
+    log("dot_interaction checks: " + json.dumps(di_checks))
+
+    # times at the serving shapes; each timed call reads fresh ids/features
+    def eb_times(B):
+        # rows read per call: 128 MB for 512 sets of 512 ids, 67 MB per
+        # set of 262,144
+        sets = [(table, torch.randint(0, V, (B, 1), generator=gen, device=dev,
+                                      dtype=torch.int32))
+                for _ in range(512 if B == 512 else 2)]
+        lib_sets = [(i.long(), t) for t, i in sets]
+        # bytes: each id's row read, the ids, each bag written; H = 1: no adds
+        b_ms, b_by = bound(B * D * 4 + B * 4 + B * D * 4, {"fma": 0})
+        return dict(
+            ms=kernel_ms(_rotating(eb.embedding_bag_cuda, sets), "embedding_bag_kernel"),
+            call_ms=time_ms(_rotating(eb.embedding_bag_cuda, sets)),
+            plain_ms=time_ms(_rotating(eb.embedding_bag_torch, sets), reps=20),
+            library_ms=time_ms(_rotating(
+                lambda i, t: F.embedding_bag(i, t, mode="sum"), lib_sets), reps=20),
+            bound_ms=b_ms, bound_by=b_by)
+
+    def di_times(B):
+        # 113 MB of features in 64 sets of 512 rows, 906 MB per set of 262,144
+        sets = [(torch.randn((B, 27, D), generator=gen, device=dev)
+                 .to(torch.bfloat16),) for _ in range(64 if B == 512 else 2)]
+        iu, ju = (torch.from_numpy(a).to(dev) for a in np.triu_indices(27, k=1))
+        pairs = 27 * 26 // 2
+        # bytes: the bf16 features read, the f32 dots written; one f32 FMA
+        # per feature element per pair
+        b_ms, b_by = bound(B * 27 * D * 2 + B * pairs * 4, {"fma": B * pairs * D})
+        return dict(
+            ms=kernel_ms(_rotating(di.dot_interaction_cuda, sets),
+                         "dot_interaction_kernel"),
+            call_ms=time_ms(_rotating(di.dot_interaction_cuda, sets)),
+            plain_ms=time_ms(_rotating(di.dot_interaction_torch, sets), reps=20),
+            library_ms=time_ms(_rotating(
+                lambda x: torch.bmm(x, x.transpose(1, 2))[:, iu, ju], sets), reps=20),
+            bound_ms=b_ms, bound_by=b_by)
+
+    eb_t = {B: eb_times(B) for B in (512, 262144)}
+    di_t = {B: di_times(B) for B in (512, 262144)}
+    del table
+    torch.cuda.empty_cache()
+    for name, t in (("embedding_bag", eb_t), ("dot_interaction", di_t)):
+        for B, r in t.items():
+            log(f"{name} batch {B}: kernel {r['ms']:.4f} ms (profiler; one call "
+                f"between events {r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+                f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+                f"({r['bound_by']})")
+
+    def entry(name, src, replaces, t, checks, err):
+        bulk, p99 = t[262144], t[512]
+        return dict(name=name, route="cuda", source=src, replaces=replaces,
+                    launches=None, max_abs_err=err, shape="serve_bulk, batch 262144",
+                    **{k: bulk[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "library_ms", "call_ms")},
+                    serve_p99={k: p99[k] for k in ("ms", "call_ms", "plain_ms",
+                                                   "library_ms", "bound_ms", "bound_by")},
+                    checks=len(checks))
+
+    return [
+        entry("embedding_bag", "src/repro_torch/kernels/csrc/embedding_bag.cu",
+              "src/repro/kernels/embedding_bag/kernel.py:23", eb_t, eb_checks,
+              max(c["max_abs_err"] for c in eb_checks)),
+        entry("dot_interaction", "src/repro_torch/kernels/csrc/dot_interaction.cu",
+              "src/repro/kernels/dot_interaction/kernel.py:22", di_t, di_checks,
+              max(c["max_abs_err"] for c in di_checks)),
     ]
 
 
 # ------------------------------------------------------------------ phase 3
 
 
-def phase_main_path(kernels):
+def phase_main_path(kernels, root):
+    """Train, fail, restore and save again into ``root``; returns the
+    resumed Trainer, still open, for the serve phase."""
     import numpy as np
     import torch
 
@@ -339,96 +491,255 @@ def phase_main_path(kernels):
         f"({cfg.table_rows * cfg.embed_dim * 4 / 1e9:.2f} GB f32) instead of "
         f"187775488 (48.07 GB)")
 
-    root = tempfile.mkdtemp(prefix="cnr-chip-smoke-")
+    ckpt = CheckpointConfig(interval_batches=2, policy="intermittent",
+                            quant=PAPER_DEFAULTS[4], keep_latest=10,
+                            device="cuda")
+    store = LocalFSStore(root)
+    aq.LAUNCHES.reset()
+    ch.LAUNCHES.reset()
+    t0 = time.monotonic()
+    tr = Trainer(bundle, store, ckpt, TrainerConfig(total_steps=6, log_every=1))
+    check(tr.init_or_restore() == 0, "fresh start")
+    tr.run(6)
+    run_s = time.monotonic() - t0
+    tr.manager.wait()  # the step-6 save, still in flight
+    wait_s = time.monotonic() - t0 - run_s
+    live = {k: v.cpu().numpy() for k, v in tr.state.params["tables"].items()}
     try:
-        ckpt = CheckpointConfig(interval_batches=2, policy="intermittent",
-                                quant=PAPER_DEFAULTS[4], keep_latest=10,
-                                device="cuda")
-        store = LocalFSStore(root)
-        aq.LAUNCHES.reset()
-        ch.LAUNCHES.reset()
-        t0 = time.monotonic()
-        tr = Trainer(bundle, store, ckpt, TrainerConfig(total_steps=6, log_every=1))
-        check(tr.init_or_restore() == 0, "fresh start")
-        tr.run(6)
-        run_s = time.monotonic() - t0
-        tr.manager.wait()  # the step-6 save, still in flight
-        wait_s = time.monotonic() - t0 - run_s
-        live = {k: v.cpu().numpy() for k, v in tr.state.params["tables"].items()}
-        try:
-            tr.run(2, fail_at_step=7)
-            raise RuntimeError("the injected failure did not fire")
-        except SimulatedFailure as e:
-            log(f"injected: {e}")
-        tr.close()
-        torch.cuda.synchronize()
-        train_s = time.monotonic() - t0
-        launches = {"quant_pack": aq.LAUNCHES.count, "chunk_hash": ch.LAUNCHES.count}
+        tr.run(2, fail_at_step=7)
+        raise RuntimeError("the injected failure did not fire")
+    except SimulatedFailure as e:
+        log(f"injected: {e}")
+    tr.close()
+    torch.cuda.synchronize()
+    train_s = time.monotonic() - t0
+    launches = {"quant_pack": aq.LAUNCHES.count, "chunk_hash": ch.LAUNCHES.count}
 
-        steps = mf.list_steps(store)
-        check(steps == [2, 4, 6], f"committed steps {steps}")
-        per_step = {}
-        for s in steps:
-            man = mf.load(store, s)
-            recs = [c for t in man.tables.values() for c in t.chunks]
-            check(all(c.hash32 is not None for c in recs), f"hash32 on step {s}")
-            per_step[s] = dict(kind=man.kind, chunks=len(recs), nbytes=man.nbytes_total)
-        log(f"saves: {json.dumps(per_step)}; launches {launches}; "
-            f"stall_s {tr.stall_times}; init + 6 steps + 3 snapshots {run_s:.2f} s, "
-            f"then the last save {wait_s:.2f} s; all with the failed step "
-            f"{train_s:.1f} s; "
-            f"losses {[round(h['loss'], 5) for h in tr.history]}")
-        check(per_step[2]["kind"] == "full" and per_step[2]["chunks"] == 130,
-              "first full save has 130 chunks")
-        n_chunks = sum(v["chunks"] for v in per_step.values())
-        check(launches["quant_pack"] == n_chunks and launches["chunk_hash"] == n_chunks,
-              f"launches {launches} == quantized chunks written {n_chunks}")
-        check(all(math.isfinite(h["loss"]) for h in tr.history), "finite losses")
+    steps = mf.list_steps(store)
+    check(steps == [2, 4, 6], f"committed steps {steps}")
+    per_step = {}
+    for s in steps:
+        man = mf.load(store, s)
+        recs = [c for t in man.tables.values() for c in t.chunks]
+        check(all(c.hash32 is not None for c in recs), f"hash32 on step {s}")
+        per_step[s] = dict(kind=man.kind, chunks=len(recs), nbytes=man.nbytes_total)
+    log(f"saves: {json.dumps(per_step)}; launches {launches}; "
+        f"stall_s {tr.stall_times}; init + 6 steps + 3 snapshots {run_s:.2f} s, "
+        f"then the last save {wait_s:.2f} s; all with the failed step "
+        f"{train_s:.1f} s; "
+        f"losses {[round(h['loss'], 5) for h in tr.history]}")
+    check(per_step[2]["kind"] == "full" and per_step[2]["chunks"] == 130,
+          "first full save has 130 chunks")
+    n_chunks = sum(v["chunks"] for v in per_step.values())
+    check(launches["quant_pack"] == n_chunks and launches["chunk_hash"] == n_chunks,
+          f"launches {launches} == quantized chunks written {n_chunks}")
+    check(all(math.isfinite(h["loss"]) for h in tr.history), "finite losses")
 
-        t0 = time.monotonic()
-        rs = CheckNRunManager(LocalFSStore(root), ckpt).restore()
-        check(rs.step == 6, f"restored step {rs.step}")
-        tr2 = Trainer(bundle, LocalFSStore(root), ckpt,
-                      TrainerConfig(total_steps=2, log_every=1))
-        check(tr2.init_or_restore() == 6, "resume at step 6")
-        restore_s = time.monotonic() - t0
-        rel = 0.0
-        for name, arr in rs.tables.items():
-            got = tr2.state.params["tables"][name]
-            check(got.is_cuda and torch.equal(got.cpu(), torch.from_numpy(arr)),
-                  f"{name}: Trainer restore == manager.restore()")
-            rel = max(rel, float(np.abs(arr - live[name]).mean()
-                                 / np.abs(live[name]).mean()))
-        check(0 < rel < 0.1, f"4-bit restore error {rel} within the quantization bound")
-        scan = scan_store(LocalFSStore(root))
-        check(scan.ok, f"integrity scan: {scan.problems}")
-        # steps 7-8; step 8 saves from the restored state, through both
-        # kernels. wait() raises if that save failed.
-        tr2.run(2)
-        tr2.manager.wait()
-        tr2.close()
-        resumed = {"quant_pack": aq.LAUNCHES.count - launches["quant_pack"],
-                   "chunk_hash": ch.LAUNCHES.count - launches["chunk_hash"]}
-        launches = {"quant_pack": aq.LAUNCHES.count, "chunk_hash": ch.LAUNCHES.count}
-        check(all(math.isfinite(h["loss"]) for h in tr2.history), "finite losses after restore")
-        steps = mf.list_steps(store)
-        check(steps == [2, 4, 6, 8], f"committed steps after the resume {steps}")
-        man8 = mf.load(store, 8)
-        recs8 = [c for t in man8.tables.values() for c in t.chunks]
-        check(recs8 and all(c.hash32 is not None for c in recs8), "hash32 on step 8")
-        check(resumed["quant_pack"] == len(recs8) and resumed["chunk_hash"] == len(recs8),
-              f"resumed launches {resumed} == step-8 chunks {len(recs8)}")
-        check(scan_store(LocalFSStore(root)).ok, "integrity scan after step 8")
-        log(f"restore {restore_s:.1f} s (chain {rs.chain_len}); worst table mean "
-            f"rel err {rel:.5f}; scan ok; resumed losses "
-            f"{[round(h['loss'], 5) for h in tr2.history]}; step-8 save "
-            f"{man8.kind}, {len(recs8)} chunks, {man8.nbytes_total} B; "
-            f"launches in all {launches}")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    t0 = time.monotonic()
+    rs = CheckNRunManager(LocalFSStore(root), ckpt).restore()
+    check(rs.step == 6, f"restored step {rs.step}")
+    tr2 = Trainer(bundle, LocalFSStore(root), ckpt,
+                  TrainerConfig(total_steps=2, log_every=1))
+    check(tr2.init_or_restore() == 6, "resume at step 6")
+    restore_s = time.monotonic() - t0
+    rel = 0.0
+    for name, arr in rs.tables.items():
+        got = tr2.state.params["tables"][name]
+        check(got.is_cuda and torch.equal(got.cpu(), torch.from_numpy(arr)),
+              f"{name}: Trainer restore == manager.restore()")
+        rel = max(rel, float(np.abs(arr - live[name]).mean()
+                             / np.abs(live[name]).mean()))
+    check(0 < rel < 0.1, f"4-bit restore error {rel} within the quantization bound")
+    scan = scan_store(LocalFSStore(root))
+    check(scan.ok, f"integrity scan: {scan.problems}")
+    # steps 7-8; step 8 saves from the restored state, through both
+    # kernels. wait() raises if that save failed.
+    tr2.run(2)
+    tr2.manager.wait()
+    resumed = {"quant_pack": aq.LAUNCHES.count - launches["quant_pack"],
+               "chunk_hash": ch.LAUNCHES.count - launches["chunk_hash"]}
+    launches = {"quant_pack": aq.LAUNCHES.count, "chunk_hash": ch.LAUNCHES.count}
+    check(all(math.isfinite(h["loss"]) for h in tr2.history), "finite losses after restore")
+    steps = mf.list_steps(store)
+    check(steps == [2, 4, 6, 8], f"committed steps after the resume {steps}")
+    man8 = mf.load(store, 8)
+    recs8 = [c for t in man8.tables.values() for c in t.chunks]
+    check(recs8 and all(c.hash32 is not None for c in recs8), "hash32 on step 8")
+    check(resumed["quant_pack"] == len(recs8) and resumed["chunk_hash"] == len(recs8),
+          f"resumed launches {resumed} == step-8 chunks {len(recs8)}")
+    check(scan_store(LocalFSStore(root)).ok, "integrity scan after step 8")
+    log(f"restore {restore_s:.1f} s (chain {rs.chain_len}); worst table mean "
+        f"rel err {rel:.5f}; scan ok; resumed losses "
+        f"{[round(h['loss'], 5) for h in tr2.history]}; step-8 save "
+        f"{man8.kind}, {len(recs8)} chunks, {man8.nbytes_total} B; "
+        f"launches in all {launches}")
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-        check(k["launches"] > 0, f"{k['name']} ran on the main path")
+        if k["name"] in launches:
+            k["launches"] = launches[k["name"]]
+    return tr2
+
+
+# ------------------------------------------------------------------ phase 4
+
+
+def phase_serve(kernels, root, trainer, device="cuda", reduced=False,
+                p99_batches=200, bulk_batches=4):
+    """Serve dlrm-rm2 from the chain in ``root`` (phase 3's store), then
+    follow it with a subscriber while ``trainer`` (phase 3's resumed
+    Trainer, still open) saves once more."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_cell
+    from repro_torch.core import CheckNRunManager, CheckpointConfig, LocalFSStore
+    from repro_torch.core import checkpoint as cp
+    from repro_torch.core import manifest as mf
+    from repro_torch.core import range_reader as rr
+    from repro_torch.data.cells import batch_for_cell
+    from repro_torch.kernels.dot_interaction import ops as di
+    from repro_torch.kernels.embedding_bag import ops as eb
+    from repro_torch.models import dlrm
+    from repro_torch.serve import CheckpointSubscriber, EmbeddingServer
+    from repro_torch.train.loop import batch_to_device
+    from repro_torch.train.state import restore_train_state
+
+    cap = None if reduced else VOCAB_CAP
+    p99 = get_cell("dlrm-rm2", "serve_p99", reduced=reduced, device=device, vocab_cap=cap)
+    bulk = get_cell("dlrm-rm2", "serve_bulk", reduced=reduced, device=device, vocab_cap=cap)
+    n_fields = p99.cfg.n_sparse
+    batches = [batch_for_cell(p99, 50_000 + i) for i in range(p99_batches)]
+    bulk_np = [batch_for_cell(bulk, 60_000 + i) for i in range(bulk_batches)]
+    store = LocalFSStore(root)
+    head = mf.latest_step(store)
+
+    def answer(bundle, params, batch):
+        """One request batch: host arrays in, host probabilities out."""
+        return bundle.step_fn(params, batch_to_device(batch, bundle.device)).cpu().numpy()
+
+    # (a) restore the newest chain, then serve request batches of 512
+    eb.LAUNCHES.reset()
+    di.LAUNCHES.reset()
+    t0 = time.monotonic()
+    mgr = CheckNRunManager(store, CheckpointConfig(device=device))
+    restored = mgr.restore()
+    mgr.close()
+    params = restore_train_state(p99.make_state(), restored, p99.tracked).params
+    first = answer(p99, params, batches[0])
+    first_s = time.monotonic() - t0
+    check(restored.step == head and np.isfinite(first).all(),
+          f"restored the newest step {restored.step} == {head} and answered")
+    lat = []
+    for b in batches[1:]:
+        t1 = time.monotonic()
+        probs = answer(p99, params, b)
+        lat.append((time.monotonic() - t1) * 1e3)
+        check(probs.shape == (b["dense"].shape[0],) and np.isfinite(probs).all()
+              and ((probs >= 0) & (probs <= 1)).all(),
+              "serve_p99 probabilities finite, in [0, 1], one per request")
+    lat.sort()
+    p50, p99_ms = lat[len(lat) // 2], lat[int(len(lat) * 0.99)]
+    # where a request batch's time goes: device time by kernel group from a
+    # profiler trace of 20 batches, against their wall time (which the
+    # profiler itself lengthens)
+    from torch.profiler import ProfilerActivity, profile
+
+    traced = batches[1:21]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.monotonic()
+        for b in traced:
+            answer(p99, params, b)
+        traced_ms = (time.monotonic() - t1) * 1e3 / len(traced)
+    dev_ms = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            group = next((g for g in ("embedding_bag", "dot_interaction", "gemm", "memcpy")
+                          if g in e.name.lower()), "other")
+            dev_ms[group] = (dev_ms.get(group, 0.0)
+                             + e.time_range.elapsed_us() / 1e3 / len(traced))
+    busy_ms = sum(dev_ms.values())
+    check(dev_ms.get("embedding_bag", 0) > 0 and dev_ms.get("dot_interaction", 0) > 0,
+          f"the traced serve batches ran both kernels: {dev_ms}")
+    log(f"serve_p99 trace, per batch: wall {traced_ms:.3f} ms under the profiler, "
+        f"device busy {busy_ms:.3f} ms ({json.dumps({k: round(v, 4) for k, v in dev_ms.items()})}), "
+        f"device idle share {1 - busy_ms / traced_ms:.3f}")
+    # (b) bulk scoring, timed after one warm-up batch (the allocator's
+    # first blocks of this size)
+    for i, b in enumerate(bulk_np):
+        if i == 1:
+            t1 = time.monotonic()
+        probs = answer(bulk, params, b)
+        check(probs.shape == (b["dense"].shape[0],) and np.isfinite(probs).all(),
+              "serve_bulk probabilities finite, one per row")
+    bulk_s = time.monotonic() - t1
+    rows_s = sum(b["dense"].shape[0] for b in bulk_np[1:]) / bulk_s
+    # (c) every batch went through both kernels
+    n = p99_batches + len(traced) + bulk_batches
+    launches = {"embedding_bag": eb.LAUNCHES.count, "dot_interaction": di.LAUNCHES.count}
+    check(launches == {"embedding_bag": n_fields * n, "dot_interaction": n},
+          f"serve launches {launches} == {n_fields} x {n} batches and {n}")
+    log(f"serve: restore of step {restored.step} (chain {restored.chain_len}) to "
+        f"the first answer {first_s:.2f} s; serve_p99 {p99_batches} batches of "
+        f"{batches[0]['dense'].shape[0]}: p50 {p50:.3f} ms, p99 {p99_ms:.3f} ms per "
+        f"batch (host arrays in, host probabilities out); serve_bulk "
+        f"{bulk_batches - 1} batches of {bulk_np[0]['dense'].shape[0]} after one: "
+        f"{bulk_s:.3f} s, "
+        f"{rows_s:.0f} rows/s; launches {launches}")
+    # (d) the kernel path against the plain versions on the card, one batch
+    b = batch_to_device(batches[0], p99.device)
+    k = dlrm.serve(params, b, p99.cfg)
+    p = dlrm.serve(params, b, p99.cfg, bag=eb.embedding_bag_torch,
+                   interact=di.dot_interaction_torch)
+    serve_err = float((k - p).abs().max())
+    # bf16 model: equal embeddings (H = 1) and f32 dots that differ in the
+    # last bits can still round to neighbouring bf16 values before the top
+    # MLP; 1e-2 on a probability is far above that and far below a wrong
+    # lookup or pair order
+    check(serve_err <= 1e-2, f"kernel path vs plain path probabilities: {serve_err}")
+    log(f"serve: kernel path vs plain path on one batch, max |dp| {serve_err:.3g}")
+    # (e) a subscriber follows the store: bit-equal to restore(), then one delta
+    sub = CheckpointSubscriber(LocalFSStore(root), EmbeddingServer())
+    t1 = time.monotonic()
+    check(sub.poll_once(), f"subscriber full sync: {sub.health}")
+    sync_s = time.monotonic() - t1
+    with sub.server.pinned() as v:
+        check(v.step == head, f"subscriber at step {v.step}")
+        for name, want in restored.tables.items():
+            check(np.array_equal(v.tables()[name], want),
+                  f"{name}: subscriber table == restore() bit for bit")
+    sync_bytes = sub.refresh_bytes_total
+    trainer.run(2)
+    trainer.manager.wait()
+    nxt = mf.latest_step(store)
+    check(nxt == head + 2, f"one more save: step {nxt}")
+    t1 = time.monotonic()
+    check(sub.poll_once(), f"subscriber delta poll: {sub.health}")
+    catchup_s = time.monotonic() - t1
+    delta_bytes = sub.refresh_bytes_total - sync_bytes
+    man = mf.load(store, nxt)
+    check(sub.incremental_refreshes_total == 1 and sub.full_syncs_total == 1,
+          f"the second poll applied a delta: {sub.metrics()}")
+    check(delta_bytes == rr.plan_ranges([man]).nbytes,
+          f"delta poll fetched {delta_bytes} B == step {nxt}'s chunks and dense "
+          f"{rr.plan_ranges([man]).nbytes} B")
+    rows = 0
+    with sub.server.pinned() as v:
+        check(v.step == nxt, f"subscriber at step {v.step}")
+        for name, rec in man.tables.items():
+            for ch in rec.chunks:
+                idx, vals, _ = cp.decode_chunk(nxt, name, rec, ch, store.get(ch.key))
+                check(np.array_equal(v.tables()[name][idx], vals),
+                      f"{name}: step {nxt}'s rows applied")
+                rows += len(idx)
+    log(f"subscriber: full sync of step {head} {sync_s:.2f} s, {sync_bytes} B, "
+        f"tables bit-equal to restore(); step {nxt} ({man.kind}) caught up by its "
+        f"delta alone in {catchup_s:.3f} s, {delta_bytes} B, {rows} rows")
+    for kd in kernels:
+        if kd["name"] in launches:
+            kd["launches"] = launches[kd["name"]]
+    return dict(first_answer_s=first_s, p50_ms=p50, p99_ms=p99_ms, bulk_rows_s=rows_s,
+                traced_ms=traced_ms, device_busy_ms=busy_ms,
+                serve_max_abs_dp=serve_err, sync_s=sync_s, sync_bytes=sync_bytes,
+                catchup_s=catchup_s, catchup_bytes=delta_bytes)
 
 
 def main(argv=None) -> int:
@@ -446,7 +757,17 @@ def main(argv=None) -> int:
     card = phase_device()
     kernels = phase_kernels()
     if not args.kernels_only:
-        phase_main_path(kernels)
+        root = tempfile.mkdtemp(prefix="cnr-chip-smoke-")
+        trainer = None
+        try:
+            trainer = phase_main_path(kernels, root)
+            phase_serve(kernels, root, trainer)
+        finally:
+            if trainer is not None:
+                trainer.close()
+            shutil.rmtree(root, ignore_errors=True)
+        for k in kernels:
+            check(k["launches"] > 0, f"{k['name']} ran on its path")
     log(f"total {time.monotonic() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,10 +1,10 @@
 """Family-level cell builders: (arch config × shape) → CellBundle.
 
-A CellBundle is everything one train cell needs: the step callable, the
-input specs, the tracked specs for Check-N-Run, the optimizer, and the
-device it all lives on. Only the recsys family's train cells with the
-sparse DLRM step are ported so far; serve and retrieval cells, and the
-other families, come with later slices.
+A CellBundle is everything one cell needs: the step callable, the input
+specs, the tracked specs for Check-N-Run, the optimizer, and the device it
+all lives on. dlrm-rm2's train cells (the sparse DLRM step) and serve
+cells (``serve_p99``, ``serve_bulk``) are ported; the retrieval cell and
+the other archs and families come with later slices.
 """
 
 from __future__ import annotations
@@ -31,11 +31,12 @@ class InputSpec(NamedTuple):
 class CellBundle:
     arch: str
     shape: str
-    kind: str                       # train (the only kind ported so far)
+    kind: str                       # train | serve
     cfg: Any
     device: torch.device
     init: Callable                  # torch.Generator -> params
-    step_fn: Callable               # (state, batch) -> (state, metrics)
+    step_fn: Callable               # train: (state, batch) -> (state, metrics)
+                                    # serve: (params, batch) -> probs
     make_inputs: Callable           # () -> {name: InputSpec}
     tracked: Dict[str, TrackedSpec]
     optimizer: Any
@@ -54,24 +55,30 @@ def recsys_cell(arch: str, cfg, shape: str, reduced: bool = False,
                 device="cuda") -> CellBundle:
     spec = (S.RECSYS_SHAPES_REDUCED if reduced else S.RECSYS_SHAPES)[shape]
     kind = spec["kind"]
-    if arch != "dlrm-rm2" or kind != "train":
+    if arch != "dlrm-rm2":
         raise NotImplementedError(
-            f"({arch}, {shape}) is not ported yet: this slice ports the "
-            f"dlrm-rm2 train cells; other recsys archs and serve/retrieval "
-            f"cells come with later slices")
+            f"({arch}, {shape}) is not ported yet: only dlrm-rm2 is; the "
+            f"other archs come with ROADMAP A6")
+    if kind not in ("train", "serve"):
+        raise NotImplementedError(
+            f"({arch}, {shape}) is not ported yet: the {kind} cell "
+            f"(serve_retrieval) comes with ROADMAP A3")
     dev = resolve_device(device)
     B = spec["batch"]
     tracked = m_dlrm.tracked_specs(cfg)
     optimizer = split_optimizer(rowwise_adagrad(0.01), adagrad(0.01))
-    inputs = dict(sparse_ids=InputSpec((B, cfg.n_sparse, cfg.multi_hot), np.int32),
-                  label=InputSpec((B,), np.float32))
+    inputs = dict(sparse_ids=InputSpec((B, cfg.n_sparse, cfg.multi_hot), np.int32))
+    if kind == "train":
+        inputs["label"] = InputSpec((B,), np.float32)
+        # the sparse embedding update (see models/dlrm.py)
+        step_fn = m_dlrm.make_sparse_train_step(cfg, adagrad(0.01))
+    else:
+        step_fn = lambda params, batch: m_dlrm.serve(params, batch, cfg)
     if cfg.n_dense:
         inputs["dense"] = InputSpec((B, cfg.n_dense), np.float32)
 
     return CellBundle(
         arch=arch, shape=shape, kind=kind, cfg=cfg, device=dev,
         init=lambda gen: m_dlrm.init_params(gen, cfg),
-        # the sparse embedding update (see models/dlrm.py)
-        step_fn=m_dlrm.make_sparse_train_step(cfg, adagrad(0.01)),
-        make_inputs=lambda: dict(inputs), tracked=tracked,
+        step_fn=step_fn, make_inputs=lambda: dict(inputs), tracked=tracked,
         optimizer=optimizer)

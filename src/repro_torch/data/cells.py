@@ -2,7 +2,7 @@
 ``bundle.make_inputs()`` exactly, values come from the deterministic
 synthetic streams, and for the same ``(cell, batch_idx, seed)`` the batch is
 the reference's (``src/repro/data/cells.py``) array for array. Only the
-recsys train cells are ported so far."""
+dlrm-rm2 train and serve cells are ported so far."""
 
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ from . import synthetic as syn
 def batch_for_cell(bundle: CellBundle, batch_idx: int, seed: int = 0) -> Dict[str, np.ndarray]:
     specs = bundle.make_inputs()
     arch, kind, cfg = bundle.arch, bundle.kind, bundle.cfg
-    if arch == "dlrm-rm2" and kind == "train":
+    if arch == "dlrm-rm2" and kind in ("train", "serve"):
         B = specs["sparse_ids"].shape[0]
         b = syn.recsys_batch(syn.RecsysStreamConfig(
             batch=B, n_dense=getattr(cfg, "n_dense", 0),
@@ -26,6 +26,7 @@ def batch_for_cell(bundle: CellBundle, batch_idx: int, seed: int = 0) -> Dict[st
         out = dict(sparse_ids=b["sparse_ids"])
         if "dense" in specs:
             out["dense"] = b["dense"]
-        out["label"] = b["label"]
+        if kind == "train":
+            out["label"] = b["label"]
         return out
     raise ValueError(f"no batch generator for ({arch}, {kind})")

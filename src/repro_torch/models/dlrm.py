@@ -14,6 +14,8 @@ import numpy as np
 import torch
 
 from ..core.tracker import mark_touched
+from ..kernels.dot_interaction import dot_interaction as dot_interaction_op
+from ..kernels.embedding_bag import embedding_bag
 from ..train.state import TrackedSpec, TrainState
 from ..tree import tree_map
 from .embedding import (
@@ -75,12 +77,14 @@ def dot_interaction(feats: torch.Tensor) -> torch.Tensor:
              torch.from_numpy(ju).to(feats.device)]
 
 
-def _logits(dense_params, dense_x, emb, cfg: DLRMConfig) -> torch.Tensor:
-    """``emb`` (B, F, D) is the looked-up (bag-summed) sparse features."""
+def _logits(dense_params, dense_x, emb, cfg: DLRMConfig,
+            interact=dot_interaction) -> torch.Tensor:
+    """``emb`` (B, F, D) is the looked-up (bag-summed) sparse features;
+    ``interact`` maps the (B, F+1, D) features to their pairwise dots."""
     cd = cfg.compute_dtype
     bot = mlp_apply(dense_params["bot"], dense_x, final_act=True, compute_dtype=cd)
     feats = torch.cat([bot[:, None, :], emb.to(cd)], dim=1)
-    inter = dot_interaction(feats)
+    inter = interact(feats)
     top_in = torch.cat([bot, inter], dim=-1)
     out = mlp_apply(dense_params["top"], top_in, compute_dtype=cd)
     return out[..., 0].to(torch.float32)
@@ -94,6 +98,22 @@ def train_loss(params, batch, cfg: DLRMConfig):
     acc = torch.mean(((logits > 0) == (batch["label"] > 0.5)).to(torch.float32))
     touched = touched_masks(cfg.vocab_sizes, batch["sparse_ids"])
     return loss, dict(accuracy=acc, touched=touched)
+
+
+def serve(params, batch, cfg: DLRMConfig, bag=embedding_bag,
+          interact=dot_interaction_op) -> torch.Tensor:
+    """Online/offline CTR scoring (the serve_p99 / serve_bulk cells): the
+    sigmoid of the logits, without gradients. On a card the lookup is one
+    ``embedding_bag`` kernel launch per field and the interaction one
+    ``dot_interaction`` launch; ``bag`` and ``interact`` swap in other
+    versions of the two ops (the plain ones, to hold the kernels against
+    them). The f32 dots are cast to the compute dtype, which is what the
+    reference's einsum in that dtype yields."""
+    with torch.no_grad():
+        emb = lookup_fields(params["tables"], batch["sparse_ids"], bag=bag)
+        logits = _logits(params["dense"], batch["dense"], emb, cfg,
+                         interact=lambda f: interact(f).to(f.dtype))
+        return torch.sigmoid(logits)
 
 
 def make_sparse_train_step(cfg: DLRMConfig, dense_opt, lr: float = 0.01,

@@ -1,8 +1,9 @@
 """Sparse embedding stack for recsys models, in PyTorch.
 
-The lookup is ``index_select`` + sum-over-bag (dense multi-hot), the hot
-path the paper's models spend their memory bandwidth on. Tables live whole
-on one device: the reference's row sharding over a mesh waits for the
+The lookup is gather + sum-over-bag (dense multi-hot), the hot path the
+paper's models spend their memory bandwidth on: the ``embedding_bag``
+kernel on a card, its plain version on the CPU. Tables live whole on one
+device: the reference's row sharding over a mesh waits for the
 multi-device slice.
 """
 
@@ -13,6 +14,7 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
+from ..kernels.embedding_bag import embedding_bag
 from ..train.state import TrackedSpec
 from .layers import dense_init
 
@@ -39,17 +41,14 @@ def table_specs(vocab_sizes: Sequence[int], dim: int,
     }
 
 
-def embedding_bag(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Dense multi-hot bag-sum: ids (..., H) → (..., dim)."""
-    emb = table[ids.to(torch.int64)]  # (..., H, D)
-    return emb.sum(dim=-2)
-
-
 def lookup_fields(tables: Dict[str, torch.Tensor], ids: torch.Tensor,
-                  prefix: str = "emb") -> torch.Tensor:
+                  prefix: str = "emb", bag=embedding_bag) -> torch.Tensor:
     """Multi-field lookup: ids (B, F, H) → (B, F, D) bf16 (bag-sum over H),
-    cast as the reference casts before its cross-device exchange."""
-    outs = [embedding_bag(tables[f"{prefix}_{f}"], ids[:, f, :])
+    cast as the reference casts before its cross-device exchange. One
+    ``bag`` call per field, each on its own table; on a card that is the
+    ``embedding_bag`` kernel, which has no backward, so this is the
+    forward of serving (and of ``train_loss`` on the CPU)."""
+    outs = [bag(tables[f"{prefix}_{f}"], ids[:, f, :])
             for f in range(ids.shape[1])]
     return torch.stack(outs, dim=1).to(torch.bfloat16)
 

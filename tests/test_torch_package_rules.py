@@ -109,6 +109,14 @@ def test_cuda_without_card_raises_in_the_launcher(monkeypatch, tmp_path):
                     "--steps", "2", "--ckpt-dir", str(tmp_path)])
 
 
+def test_cuda_without_card_raises_in_the_serve_launcher(monkeypatch, tmp_path):
+    from repro_torch.launch import serve
+
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--ckpt-dir", str(tmp_path)])
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     """The kernel paths never run on a CPU tensor: the wrappers raise."""
     from repro_torch.kernels.adaptive_quant.ops import quant_pack, quant_pack_cuda
