@@ -28,8 +28,20 @@ Phases:
      one more training save by its delta alone. Its path runs
      ``embedding_bag`` and ``dot_interaction``.
 
+  5. bert4rec at full width (1,000,448 items, dim 64, 2 blocks of 2 heads
+     of 32, seq 200, d_ff 256, bf16 compute): the Trainer at batch 65,536
+     (4 micro-batches) through 4-bit adaptive saves, a restore and one more
+     save (``quant_pack`` and ``chunk_hash``); serving from that chain,
+     ``serve_p99`` (batch 512, 100 candidates each, 200 batches and a
+     20-batch trace) and ``serve_bulk`` (262,144 rows in slices of 65,536,
+     a warm-up batch and 3 timed), both blocks attending through
+     ``flash_attention``; the scores through the kernel against the plain
+     version; and the ``adaptive_quant`` op on the trained item table at 2,
+     3, 4 and 8 bits, its L2 error against uniform quantization's.
+
 Each path's launch counters are set to 0 just before it and read just
-after; every kernel of a path must have launched in it.
+after; every kernel of a path must have launched in it, and a kernel's
+``launches`` in the table is its count over the paths.
 
 The kernel table is printed as one JSON line, then the card's name and
 power limit, then the last line ``{"ok": true, "device": {...}}``. Any
@@ -39,6 +51,7 @@ failed check raises, so the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 import json
 import math
@@ -69,6 +82,7 @@ BIG_ROWS = 33_554_944
 # them) and the reciprocal of an IEEE divide, 16. Every instruction also
 # takes an issue slot, 128 lanes per clock per SM.
 PEAK_BYTES_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores
 SMS = 132
 CLOCK_HZ = 67e12 / (SMS * 128 * 2)
 LANES_PER_CLOCK = {"fma": 128, "alu": 64, "xu": 16}
@@ -136,6 +150,33 @@ def bound(nbytes: float, instrs: dict):
                  sum(instrs.values()) / ISSUE_PER_CLOCK)
     t_ops = clocks / (SMS * CLOCK_HZ) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def record_launches(kernels, path: str, counts: dict) -> None:
+    """Add one path's launch counts to the kernel table: ``launches`` is a
+    kernel's count over the paths, ``launches_by_path`` each path's."""
+    for k in kernels:
+        if k["name"] in counts:
+            k.setdefault("launches_by_path", {})[path] = counts[k["name"]]
+            k["launches"] = sum(k["launches_by_path"].values())
+
+
+def _device_split(prof, n_batches, groups, top=6):
+    """Device time per batch by kernel group from a profiler trace, and the
+    ``top`` kernels by device time (names cut to 60 characters)."""
+    import torch
+
+    dev_ms, by_name = {}, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.lower()
+            group = next((g for g, keys in groups.items()
+                          if any(key in name for key in keys)), "other")
+            ms = e.time_range.elapsed_us() / 1e3 / n_batches
+            dev_ms[group] = dev_ms.get(group, 0.0) + ms
+            by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + ms
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return dev_ms, {k: round(v, 4) for k, v in ranked}
 
 
 # ------------------------------------------------------------------ phase 1
@@ -305,6 +346,7 @@ def phase_kernels():
         f"call between events {ch_call_ms:.4f} ms), plain "
         f"{ch_plain_ms:.4f} ms, bound {ch_bound:.4f} ms ({ch_by})")
     serve_kernels = check_and_time_serve_kernels(gen, dev)
+    b4r_kernels = [check_and_time_flash(gen, dev), check_and_time_adaptive_quant(gen, dev)]
     return [
         dict(name="quant_pack", route="cuda",
              source="src/repro_torch/kernels/csrc/quant_pack.cu",
@@ -326,7 +368,7 @@ def phase_kernels():
              ms=ch_ms, plain_ms=ch_plain_ms, bound_ms=ch_bound, bound_by=ch_by,
              library_ms=None, call_ms=ch_call_ms,
              mismatch=dict(checks=len(hash_checks), all_equal=True)),
-    ] + serve_kernels
+    ] + serve_kernels + b4r_kernels
 
 
 def _rotating(fn, args_list):
@@ -462,6 +504,157 @@ def check_and_time_serve_kernels(gen, dev):
     ]
 
 
+B4R_ITEMS = 1_000_448  # bert4rec's published catalog, padded to 512
+
+
+def flash_bound(B, Sq, Sk, Hq, D, itemsize):
+    """(ms, "bytes" or "operations") for one attention call: q, k, v read
+    once and o written once against the two products' FLOPs on the bf16
+    tensor cores and the softmax's exps on the 16-lane conversion pipe."""
+    t_bytes = (2 * B * Sq * Hq * D + 2 * B * Sk * Hq * D) * itemsize / PEAK_BYTES_S * 1e3
+    t_mma = 4.0 * B * Hq * Sq * Sk * D / PEAK_BF16_FLOPS * 1e3
+    t_exp = B * Hq * Sq * Sk / (LANES_PER_CLOCK["xu"] * SMS * CLOCK_HZ) * 1e3
+    t_ops = max(t_mma, t_exp)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_and_time_flash(gen, dev):
+    """``flash_attention`` against its plain version on the card: the
+    reference's test shapes, bert4rec's serving shapes (batch 512, and one
+    65,536-row slice of serve_bulk) in bf16 and f32, causal and not; then
+    timed at the bert4rec shapes, bf16, not causal, beside
+    ``F.scaled_dot_product_attention`` on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs.bert4rec import SERVE_SLICE_ROWS as B4R_SLICE
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as fr
+
+    checks = []
+    shapes = [(2, 128, 4, 2, 64, True, torch.float32), (1, 256, 8, 8, 32, False, torch.float32),
+              (2, 128, 2, 1, 100, True, torch.float32), (1, 192, 4, 4, 64, True, torch.float32),
+              (1, 128, 4, 2, 64, True, torch.bfloat16), (2, 200, 2, 2, 32, False, torch.float32)]
+    shapes += [(b, 200, 2, 2, 32, c, dt) for b in (512, B4R_SLICE) for c in (False, True)
+               for dt in (torch.bfloat16, torch.float32)]
+    for B, S, Hq, Hkv, D, causal, dt in shapes:
+        q = torch.randn((B, S, Hq, D), generator=gen, device=dev).to(dt)
+        k, v = (torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(dt)
+                for _ in range(2))
+        got = fa.flash_attention_cuda(q, k, v, causal=causal)
+        want = fr.flash_attention_torch(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = 2e-3 if dt == torch.float32 else 3e-2
+        out = dict(shape=[B, S, Hq, Hkv, D], causal=causal,
+                   dtype=str(dt).split(".")[-1], max_abs_err=err, tol=tol)
+        checks.append(out)
+        check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+              f"flash_attention {out}")
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+    log("flash_attention checks: " + json.dumps(checks))
+
+    def times(B, n_sets):
+        sets = [tuple(torch.randn((B, 200, 2, 32), generator=gen, device=dev)
+                      .to(torch.bfloat16) for _ in range(3)) for _ in range(n_sets)]
+        kern = _rotating(lambda q, k, v: fa.flash_attention_cuda(q, k, v, causal=False), sets)
+        lib = _rotating(lambda q, k, v: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)), sets)
+        b_ms, b_by = flash_bound(B, 200, 200, 2, 32, 2)
+        r = dict(ms=kernel_ms(kern, "flash_kernel"), call_ms=time_ms(kern),
+                 plain_ms=time_ms(_rotating(lambda q, k, v: fr.flash_attention_torch(
+                     q, k, v, causal=False), sets), reps=5 if B > 512 else 20),
+                 library_ms=time_ms(lib, reps=20), bound_ms=b_ms, bound_by=b_by)
+        del sets
+        torch.cuda.empty_cache()
+        return r
+
+    # 8 sets of 13 MB each at batch 512 exceed the 50 MB L2, as new request
+    # batches do; one 65,536-row set is 1.7 GB a tensor
+    p99, bulk = times(512, 8), times(B4R_SLICE, 2)
+    for name, r in (("serve_p99 batch 512", p99), (f"serve_bulk slice {B4R_SLICE}", bulk)):
+        log(f"flash_attention {name}, bf16, (B, 200, 2, 32): kernel {r['ms']:.4f} ms "
+            f"(profiler; one call between events {r['call_ms']:.4f} ms), plain "
+            f"{r['plain_ms']:.4f} ms, F.scaled_dot_product_attention "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention/kernel.py:38",
+                launches=None, max_abs_err=max(c["max_abs_err"] for c in checks),
+                shape=f"serve_bulk slice, ({B4R_SLICE}, 200, 2, 32) bf16, not causal",
+                **{k: bulk[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms", "call_ms")},
+                serve_p99=p99, checks=len(checks))
+
+
+def check_and_time_adaptive_quant(gen, dev):
+    """The unpacked ``adaptive_quant`` kernel against its plain version
+    (``core.quantize.adaptive_quantize``) on the card, num_bins 25 and
+    ratio 0.5 (the reference's test settings), at the reference's test
+    shapes and at bert4rec's item table, 1,000,448 x 64, at 2, 3, 4 and 8
+    bits; timed at the table."""
+    import torch
+
+    from repro_torch.core.quantize import adaptive_quantize, dequantize
+    from repro_torch.kernels.adaptive_quant import ops as aq
+
+    checks = []
+    for rows, dim in ((256, 64), (512, 10), (256, 128), (512, 200), (B4R_ITEMS, 64)):
+        x = _rows(gen, rows, dim, dev)
+        for bits in (2, 3, 4, 8):
+            k = aq.adaptive_quant_cuda(x, bits=bits, num_bins=25, ratio=0.5)
+            p = adaptive_quantize(x, bits, 25, 0.5)
+            torch.cuda.synchronize()
+            out = dict(shape=[rows, dim], bits=bits,
+                       code_diff_frac=float((k.codes != p.codes).float().mean()),
+                       scale_max_abs=float((k.scale - p.scale).abs().max()),
+                       zero_max_abs=float((k.zero - p.zero).abs().max()),
+                       max_abs_err=float((dequantize(k) - dequantize(p)).abs().max()))
+            checks.append(out)
+            check(torch.allclose(k.scale, p.scale, rtol=1e-5, atol=1e-7)
+                  and torch.allclose(k.zero, p.zero, rtol=1e-5, atol=1e-7),
+                  f"adaptive_quant {out}: scale/zero")
+            check(out["code_diff_frac"] <= 2e-3, f"adaptive_quant {out}: codes")
+    log("adaptive_quant checks: " + json.dumps(checks))
+
+    x = _rows(gen, B4R_ITEMS, 64, dev)
+    n_el, n_steps = x.numel(), int(0.5 * 25)
+    # bytes: x read once, codes + scale + zero written once. Instructions
+    # per value for each of the 2*n_steps+1 candidate ranges: max, min
+    # (clip), sub, IEEE divide, rint, max, min (clamp), mul, add, sub, mul,
+    # add; then min and max of the row, and the final code: max, min, sub,
+    # divide, rint, max, min, float to uint8. An IEEE divide is one
+    # reciprocal, five f32 fma-pipe instructions and one range check.
+    n_cand = 2 * n_steps + 1
+    per = {"alu": 2 + n_cand * (4 + 1) + 4 + 1, "fma": n_cand * (6 + 5) + 1 + 5,
+           "xu": n_cand * 2 + 3}
+    b_ms, b_by = bound(n_el * 4 + n_el + 2 * B4R_ITEMS * 4,
+                       {c: n_el * n for c, n in per.items()})
+    ms_by_bits = {}
+    for bits in (2, 3, 4, 8):
+        ms_by_bits[bits] = kernel_ms(lambda: aq.adaptive_quant_cuda(
+            x, bits=bits, num_bins=25, ratio=0.5), "adaptive_quant_kernel", reps=20)
+    call = lambda: aq.adaptive_quant_cuda(x, bits=4, num_bins=25, ratio=0.5)
+    r = dict(ms=ms_by_bits[4], call_ms=time_ms(call, reps=20),
+             plain_ms=time_ms(lambda: adaptive_quantize(x, 4, 25, 0.5), reps=5),
+             bound_ms=b_ms, bound_by=b_by)
+    del x
+    torch.cuda.empty_cache()
+    log(f"adaptive_quant ({B4R_ITEMS}, 64), num_bins 25, ratio 0.5: kernel "
+        f"{json.dumps({b: round(t, 4) for b, t in ms_by_bits.items()})} ms by bits "
+        f"(profiler); 4-bit call between events {r['call_ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(name="adaptive_quant", route="cuda",
+                source="src/repro_torch/kernels/csrc/adaptive_quant.cu",
+                replaces="src/repro/kernels/adaptive_quant/kernel.py:61",
+                launches=None, max_abs_err=max(c["max_abs_err"] for c in checks),
+                shape=f"({B4R_ITEMS}, 64) f32, 4-bit, num_bins 25, ratio 0.5",
+                library_ms=None, ms_by_bits=ms_by_bits, checks=len(checks),
+                max_code_diff_frac=max(c["code_diff_frac"] for c in checks),
+                **{k: r[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")})
+
+
 # ------------------------------------------------------------------ phase 3
 
 
@@ -573,9 +766,7 @@ def phase_main_path(kernels, root):
         f"{[round(h['loss'], 5) for h in tr2.history]}; step-8 save "
         f"{man8.kind}, {len(recs8)} chunks, {man8.nbytes_total} B; "
         f"launches in all {launches}")
-    for k in kernels:
-        if k["name"] in launches:
-            k["launches"] = launches[k["name"]]
+    record_launches(kernels, "dlrm-rm2 train", launches)
     return tr2
 
 
@@ -588,7 +779,6 @@ def phase_serve(kernels, root, trainer, device="cuda", reduced=False,
     follow it with a subscriber while ``trainer`` (phase 3's resumed
     Trainer, still open) saves once more."""
     import numpy as np
-    import torch
 
     from repro_torch.configs import get_cell
     from repro_torch.core import CheckNRunManager, CheckpointConfig, LocalFSStore
@@ -649,13 +839,8 @@ def phase_serve(kernels, root, trainer, device="cuda", reduced=False,
         for b in traced:
             answer(p99, params, b)
         traced_ms = (time.monotonic() - t1) * 1e3 / len(traced)
-    dev_ms = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            group = next((g for g in ("embedding_bag", "dot_interaction", "gemm", "memcpy")
-                          if g in e.name.lower()), "other")
-            dev_ms[group] = (dev_ms.get(group, 0.0)
-                             + e.time_range.elapsed_us() / 1e3 / len(traced))
+    dev_ms, _ = _device_split(prof, len(traced), {
+        g: (g,) for g in ("embedding_bag", "dot_interaction", "gemm", "memcpy")})
     busy_ms = sum(dev_ms.values())
     check(dev_ms.get("embedding_bag", 0) > 0 and dev_ms.get("dot_interaction", 0) > 0,
           f"the traced serve batches ran both kernels: {dev_ms}")
@@ -733,13 +918,261 @@ def phase_serve(kernels, root, trainer, device="cuda", reduced=False,
     log(f"subscriber: full sync of step {head} {sync_s:.2f} s, {sync_bytes} B, "
         f"tables bit-equal to restore(); step {nxt} ({man.kind}) caught up by its "
         f"delta alone in {catchup_s:.3f} s, {delta_bytes} B, {rows} rows")
-    for kd in kernels:
-        if kd["name"] in launches:
-            kd["launches"] = launches[kd["name"]]
+    record_launches(kernels, "dlrm-rm2 serve", launches)
     return dict(first_answer_s=first_s, p50_ms=p50, p99_ms=p99_ms, bulk_rows_s=rows_s,
                 traced_ms=traced_ms, device_busy_ms=busy_ms,
                 serve_max_abs_dp=serve_err, sync_s=sync_s, sync_bytes=sync_bytes,
                 catchup_s=catchup_s, catchup_bytes=delta_bytes)
+
+
+# ------------------------------------------------------------------ phase 5
+
+
+def phase_bert4rec(kernels, root, device="cuda", reduced=False, p99_batches=200,
+                   bulk_batches=4):
+    """bert4rec at full width: train through saves and a restore into
+    ``root``, serve from that chain through ``flash_attention``, and run the
+    ``adaptive_quant`` op on the trained item table. ``device`` and
+    ``reduced`` let the phase be rehearsed on the CPU at the reduced cell."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_cell
+    from repro_torch.core import (CheckNRunManager, CheckpointConfig,
+                                  LocalFSStore, PAPER_DEFAULTS, scan_store)
+    from repro_torch.core import manifest as mf
+    from repro_torch.core.quantize import dequantize, mean_l2_loss, uniform_quantize
+    from repro_torch.data.cells import batch_for_cell
+    from repro_torch.kernels.adaptive_quant import ops as aq
+    from repro_torch.kernels.chunk_hash import ops as ch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import bert4rec
+    from repro_torch.train.loop import Trainer, TrainerConfig, batch_to_device
+    from repro_torch.train.state import restore_train_state
+
+    bundle = get_cell("bert4rec", "train_batch", reduced=reduced, device=device)
+    cfg = bundle.cfg
+    n_items = cfg.n_items
+    check(reduced or cfg.n_items == B4R_ITEMS and cfg.embed_dim == 64 and cfg.n_blocks == 2
+          and cfg.n_heads == 2 and cfg.seq_len == 200 and cfg.d_ff == 256
+          and cfg.compute_dtype == torch.bfloat16
+          and bundle.make_inputs()["items"].shape == (65536, 200)
+          and bundle.make_inputs()["neg_ids"].shape == (256,),
+          "bert4rec at full width")
+    log(f"bert4rec full width: {cfg.n_items} items x {cfg.embed_dim} "
+        f"({cfg.n_items * cfg.embed_dim * 4 / 1e6:.1f} MB f32), {cfg.n_blocks} blocks "
+        f"of {cfg.n_heads} heads, seq {cfg.seq_len}, d_ff {cfg.d_ff}, batch 65536 "
+        f"in 4 micro-batches, 256 shared negatives")
+
+    # (a) train: steps 1-4 with saves at 2 (full) and 4 (incremental)
+    step_s = []
+    step_fn = bundle.step_fn
+
+    def timed_step(state, batch):
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        out = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t1)
+        return out
+
+    bundle.step_fn = timed_step
+    ckpt = CheckpointConfig(interval_batches=2, policy="intermittent",
+                            quant=PAPER_DEFAULTS[4], keep_latest=10, device=device)
+    store = LocalFSStore(root)
+    for c in (aq.LAUNCHES, ch.LAUNCHES):
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    tr = Trainer(bundle, store, ckpt, TrainerConfig(total_steps=4, log_every=1))
+    check(tr.init_or_restore() == 0, "bert4rec fresh start")
+    tr.run(4)
+    run_s = time.monotonic() - t0
+    tr.manager.wait()
+    wait_s = time.monotonic() - t0 - run_s
+    peak_train_gb = torch.cuda.max_memory_allocated() / 1e9
+    live = tr.state.params["tables"]["item_0"].cpu().numpy()
+    tr.close()
+    steps = mf.list_steps(store)
+    check(steps == [2, 4], f"bert4rec committed steps {steps}")
+    saves = {}
+    for s in steps:
+        man = mf.load(store, s)
+        recs = man.tables["item_0"].chunks
+        check(all(c.hash32 is not None for c in recs), f"hash32 on step {s}")
+        saves[s] = dict(kind=man.kind, chunks=len(recs), nbytes=man.nbytes_total,
+                        rows=sum(c.n_rows for c in recs))
+    check(saves[2]["kind"] == "full" and saves[2]["rows"] == n_items,
+          f"the first save is full: {saves[2]}")
+    check(saves[4]["kind"] != "full" and 0 < saves[4]["rows"] < n_items,
+          f"the second save is incremental: {saves[4]}")
+    n_chunks = sum(v["chunks"] for v in saves.values())
+    launches = {"quant_pack": aq.LAUNCHES.count, "chunk_hash": ch.LAUNCHES.count}
+    check(launches == {"quant_pack": n_chunks, "chunk_hash": n_chunks},
+          f"bert4rec save launches {launches} == chunks written {n_chunks}")
+    check(all(math.isfinite(h["loss"]) for h in tr.history), "bert4rec finite losses")
+    log(f"bert4rec train: step times {[round(t, 3) for t in step_s]} s; stalls "
+        f"{[round(t, 3) for t in tr.stall_times]} s; init + 4 steps + 2 snapshots "
+        f"{run_s:.2f} s, then the last save {wait_s:.2f} s; peak device memory "
+        f"{peak_train_gb:.2f} GB; saves {json.dumps(saves)} (incremental row share "
+        f"{saves[4]['rows'] / n_items:.4f}); losses "
+        f"{[round(h['loss'], 5) for h in tr.history]}; accuracy "
+        f"{[round(h['accuracy'], 5) for h in tr.history]}")
+
+    # (b) restore, resume, one more save (step 6) from the restored state
+    t0 = time.monotonic()
+    rs = CheckNRunManager(LocalFSStore(root), ckpt).restore()
+    restore_s = time.monotonic() - t0
+    check(rs.step == 4 and rs.chain_len == 2, f"restored step {rs.step}, chain {rs.chain_len}")
+    rel = float(np.abs(rs.tables["item_0"] - live).mean() / np.abs(live).mean())
+    check(0 < rel < 0.1, f"4-bit restore error {rel} within the quantization bound")
+    tr2 = Trainer(bundle, LocalFSStore(root), ckpt, TrainerConfig(total_steps=2, log_every=1))
+    check(tr2.init_or_restore() == 4, "bert4rec resume at step 4")
+    check(torch.equal(tr2.state.params["tables"]["item_0"].cpu(),
+                      torch.from_numpy(rs.tables["item_0"])),
+          "Trainer restore == manager.restore()")
+    tr2.run(2)
+    tr2.manager.wait()
+    # where a training step's device time goes: one more step, traced,
+    # its result dropped
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.monotonic()
+        step_fn(tr2.state, batch_to_device(batch_for_cell(bundle, 6), bundle.device))
+        torch.cuda.synchronize()
+        traced_step_s = time.monotonic() - t1
+    step_split, step_top = _device_split(prof, 1, {
+        "gemm": ("gemm", "nvjet", "xmma"), "memcpy": ("memcpy",)})
+    log(f"bert4rec traced step: wall {traced_step_s:.3f} s under the profiler, device "
+        f"busy {sum(step_split.values()) / 1e3:.3f} s "
+        f"({json.dumps({k: round(v, 1) for k, v in step_split.items()})} ms); top "
+        f"kernels (ms): {json.dumps(step_top)}")
+    man6 = mf.load(store, 6)
+    n6 = len(man6.tables["item_0"].chunks)
+    launches = {"quant_pack": aq.LAUNCHES.count, "chunk_hash": ch.LAUNCHES.count}
+    check(launches == {"quant_pack": n_chunks + n6, "chunk_hash": n_chunks + n6},
+          f"launches {launches} == chunks written {n_chunks + n6}")
+    check(mf.list_steps(store) == [2, 4, 6] and scan_store(LocalFSStore(root)).ok,
+          "bert4rec step 6 committed, store scans clean")
+    check(all(math.isfinite(h["loss"]) for h in tr2.history), "finite losses after restore")
+    trained = tr2.state.params["tables"]["item_0"]
+    tr2.close()
+    record_launches(kernels, "bert4rec train", launches)
+    log(f"bert4rec restore of step 4 (chain 2) {restore_s:.2f} s, mean rel err "
+        f"{rel:.5f}; resumed losses {[round(h['loss'], 5) for h in tr2.history]}; "
+        f"step-6 save {man6.kind}, {n6} chunks, {man6.nbytes_total} B")
+
+    # (c) serve from the chain: restore to the first answer, p99 batches,
+    # a trace, bulk batches
+    p99 = get_cell("bert4rec", "serve_p99", reduced=reduced, device=device)
+    bulk = get_cell("bert4rec", "serve_bulk", reduced=reduced, device=device)
+    n_p99 = p99.make_inputs()["items"].shape[0]
+    n_bulk = bulk.make_inputs()["items"].shape[0]
+    batches = [batch_for_cell(p99, 50_000 + i) for i in range(p99_batches)]
+    bulk_np = [batch_for_cell(bulk, 60_000 + i) for i in range(bulk_batches)]
+
+    def answer(bnd, params, batch):
+        """One request batch: host arrays in, host scores out."""
+        return bnd.step_fn(params, batch_to_device(batch, bnd.device)).cpu().numpy()
+
+    fa.LAUNCHES.reset()
+    aq.ADAPTIVE_QUANT_LAUNCHES.reset()
+    t0 = time.monotonic()
+    mgr = CheckNRunManager(LocalFSStore(root), CheckpointConfig(device=device))
+    restored = mgr.restore()
+    mgr.close()
+    params = restore_train_state(p99.make_state(), restored, p99.tracked).params
+    first = answer(p99, params, batches[0])
+    first_s = time.monotonic() - t0
+    check(restored.step == 6 and first.shape == (n_p99, 100) and np.isfinite(first).all(),
+          f"served from step {restored.step}: {first.shape}")
+    lat = []
+    for b in batches[1:]:
+        t1 = time.monotonic()
+        scores = answer(p99, params, b)
+        lat.append((time.monotonic() - t1) * 1e3)
+        check(scores.shape == (n_p99, 100) and np.isfinite(scores).all(),
+              "serve_p99 scores finite, 100 per request")
+    lat.sort()
+    p50, p99_ms = lat[len(lat) // 2], lat[int(len(lat) * 0.99)]
+    traced = batches[1:21]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.monotonic()
+        for b in traced:
+            answer(p99, params, b)
+        traced_ms = (time.monotonic() - t1) * 1e3 / len(traced)
+    dev_ms, top = _device_split(prof, len(traced), {
+        "flash_attention": ("flash_kernel",), "gemm": ("gemm", "nvjet", "xmma"),
+        "memcpy": ("memcpy",)})
+    busy_ms = sum(dev_ms.values())
+    check(dev_ms.get("flash_attention", 0) > 0, f"the traced batches ran flash: {dev_ms}")
+    log(f"bert4rec serve_p99 trace, per batch: wall {traced_ms:.3f} ms under the "
+        f"profiler, device busy {busy_ms:.3f} ms "
+        f"({json.dumps({k: round(v, 4) for k, v in dev_ms.items()})}), device idle "
+        f"share {1 - busy_ms / traced_ms:.3f}; top kernels (ms): {json.dumps(top)}")
+    torch.cuda.reset_peak_memory_stats()
+    for i, b in enumerate(bulk_np):
+        if i == 1:
+            t1 = time.monotonic()
+        scores = answer(bulk, params, b)
+        check(scores.shape == (n_bulk, 100) and np.isfinite(scores).all(),
+              "serve_bulk scores finite, 100 per row")
+    bulk_s = time.monotonic() - t1
+    peak_bulk_gb = torch.cuda.max_memory_allocated() / 1e9
+    rows_s = n_bulk * (bulk_batches - 1) / bulk_s
+    slices = -(-n_bulk // bulk.cfg.serve_slice_rows)
+    n_fwd = p99_batches + len(traced) + slices * bulk_batches
+    check(fa.LAUNCHES.count == 2 * n_fwd,
+          f"flash launches {fa.LAUNCHES.count} == 2 blocks x {n_fwd} forwards "
+          f"({p99_batches + len(traced)} p99 batches, {bulk_batches} bulk batches "
+          f"of {slices} slices)")
+    launches = {"flash_attention": fa.LAUNCHES.count}
+    log(f"bert4rec serve: restore of step {restored.step} (chain {restored.chain_len}) "
+        f"to the first answer {first_s:.2f} s; serve_p99 {p99_batches} batches of {n_p99} "
+        f"x 100 candidates: p50 {p50:.3f} ms, p99 {p99_ms:.3f} ms per batch (host "
+        f"arrays in, host scores out); serve_bulk {bulk_batches - 1} batches of {n_bulk} "
+        f"in {slices} slices of {bulk.cfg.serve_slice_rows} after one: {bulk_s:.3f} s, "
+        f"{rows_s:.0f} rows/s, peak device memory {peak_bulk_gb:.2f} GB; flash "
+        f"launches {launches['flash_attention']}")
+
+    # (d) the kernel path against the plain version, and slices against the
+    # whole batch, on one p99 batch
+    b = batch_to_device(batches[0], p99.device)
+    k_scores = bert4rec.serve(params, b, p99.cfg)
+    p_scores = bert4rec.serve(params, b, p99.cfg, attention=fa.flash_attention_torch)
+    s_scores = bert4rec.serve(params, b, dataclasses.replace(p99.cfg, serve_slice_rows=128))
+    serve_err = float((k_scores - p_scores).abs().max())
+    slice_err = float((k_scores - s_scores).abs().max())
+    scale = float(p_scores.abs().max())
+    # bf16 model: attention outputs one bf16 step apart pass through two
+    # blocks' bf16 GEMMs and layernorms; 5e-2 on a score is far above that
+    # and far below a wrong mask, head or key
+    check(serve_err <= 5e-2, f"kernel vs plain scores: max |ds| {serve_err}")
+    check(slice_err <= 5e-2, f"sliced vs whole scores: max |ds| {slice_err}")
+    log(f"bert4rec serve: kernel vs plain attention on one batch, max |ds| "
+        f"{serve_err:.3g} (scores up to {scale:.3g}); slices of 128 vs the whole "
+        f"batch, max |ds| {slice_err:.3g}")
+
+    # (e) the adaptive_quant op on the trained item table
+    l2 = {}
+    for bits in (2, 3, 4, 8):
+        q = aq.adaptive_quant(trained, bits=bits, num_bins=25, ratio=0.5)
+        l_ad = float(mean_l2_loss(trained, dequantize(q)))
+        l_uni = float(mean_l2_loss(trained, dequantize(uniform_quantize(trained, bits))))
+        l2[bits] = dict(adaptive=l_ad, uniform=l_uni)
+        # the search starts from the full range and keeps a range only if
+        # it lowers the row's error, so adaptive <= uniform row by row; at
+        # 2-4 bits it must lower it (the paper's Fig. 6)
+        check(l_ad < l_uni if bits <= 4 else l_ad <= l_uni,
+              f"{bits}-bit adaptive L2 {l_ad} vs uniform {l_uni}")
+    launches["adaptive_quant"] = aq.ADAPTIVE_QUANT_LAUNCHES.count
+    check(launches["adaptive_quant"] == 4, f"adaptive_quant launches {launches}")
+    log(f"adaptive_quant on the trained item table ({tuple(trained.shape)}), num_bins "
+        f"25, ratio 0.5, mean row L2: {json.dumps(l2)}")
+    record_launches(kernels, "bert4rec serve", launches)
+    return dict(step_s=step_s, peak_train_gb=peak_train_gb, first_answer_s=first_s,
+                p50_ms=p50, p99_ms=p99_ms, bulk_rows_s=rows_s, peak_bulk_gb=peak_bulk_gb,
+                serve_max_abs_ds=serve_err, l2=l2)
 
 
 def main(argv=None) -> int:
@@ -765,6 +1198,11 @@ def main(argv=None) -> int:
         finally:
             if trainer is not None:
                 trainer.close()
+            shutil.rmtree(root, ignore_errors=True)
+        root = tempfile.mkdtemp(prefix="cnr-chip-smoke-b4r-")
+        try:
+            phase_bert4rec(kernels, root)
+        finally:
             shutil.rmtree(root, ignore_errors=True)
         for k in kernels:
             check(k["launches"] > 0, f"{k['name']} ran on its path")

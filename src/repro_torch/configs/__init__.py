@@ -1,7 +1,7 @@
 """Architecture registry: ``get_cell(arch, shape)`` → CellBundle.
 
-Only dlrm-rm2 is ported so far; the reference's other nine architectures
-come with later slices.
+dlrm-rm2 and bert4rec are ported so far; the reference's other eight
+architectures come with later slices.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from ._families import CellBundle
 
 _ARCH_MODULES = {
     "dlrm-rm2": "dlrm_rm2",
+    "bert4rec": "bert4rec",
 }
 
 ARCHS: List[str] = list(_ARCH_MODULES)
@@ -29,6 +30,6 @@ def _module(arch: str):
 def get_cell(arch: str, shape: str, reduced: bool = False, device="cuda",
              vocab_cap: Optional[int] = None) -> CellBundle:
     """The cell's bundle on ``device`` (the card unless the caller asks for
-    the CPU); ``vocab_cap`` caps every table's rows."""
+    the CPU); ``vocab_cap`` caps every table's rows (dlrm-rm2 only)."""
     return _module(arch).make_cell(shape, reduced=reduced, device=device,
                                    vocab_cap=vocab_cap)

@@ -6,7 +6,8 @@ the paper's "granularity of an entire embedding vector".
 
 Ported here: uniform symmetric / asymmetric (``uniform_quantize``, §4.2.1)
 and adaptive asymmetric with the greedy range search
-(``adaptive_quantize``, §4.2.3), plus ``dequantize``. The k-means variants
+(``adaptive_quantize``, §4.2.3), plus ``dequantize`` and the paper's
+error metric ``mean_l2_loss``. The k-means variants
 (§4.2.2) of the reference (``src/repro/core/quantize.py``) wait for a later
 slice.
 
@@ -152,6 +153,11 @@ def dequantize(q: Quantized) -> torch.Tensor:
                          torch.full_like(s, float("-inf")))
     s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
     return s.to(torch.float32)
+
+
+def mean_l2_loss(x: torch.Tensor, deq: torch.Tensor) -> torch.Tensor:
+    """Paper metric: (1/m) * sum_i ||X_i - Q_i||_2  (mean of row l2 norms)."""
+    return torch.mean(torch.linalg.vector_norm(x.to(torch.float32) - deq, dim=-1))
 
 
 # ---------------------------------------------------------------------------

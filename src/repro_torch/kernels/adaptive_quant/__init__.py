@@ -1,1 +1,8 @@
-from .ops import PackedQuant, quant_codes, quant_pack
+from .ops import (
+    ADAPTIVE_QUANT_LAUNCHES,
+    PackedQuant,
+    adaptive_quant,
+    adaptive_quant_cuda,
+    quant_codes,
+    quant_pack,
+)

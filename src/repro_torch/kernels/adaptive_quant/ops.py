@@ -1,5 +1,5 @@
-"""Fused checkpoint quantize + bit-pack: the CUDA kernel and its plain
-PyTorch twin.
+"""Checkpoint quantization ops: the CUDA kernels and their plain PyTorch
+twins.
 
 * ``quant_pack`` returns the packed little-endian word stream (plus per-row
   scale/zero) where the input lives: for a CUDA tensor through the
@@ -16,8 +16,14 @@ scores a candidate range by its r-space error
 ``scale² · Σ (r - round(clip(r)))²`` with ``r = (x - lo) · (1/scale)``, as
 the reference does (``src/repro/kernels/adaptive_quant/ops.py``).
 
-``impl``: "auto" (the kernel for a CUDA tensor, the plain version for a CPU
-tensor), "cuda", "torch".
+* ``adaptive_quant`` is the older unpacked op (uint8 codes plus per-row
+  scale/zero), the public entry point the reference exports from
+  ``repro.kernels``: the hand-written kernel (``csrc/adaptive_quant.cu``)
+  for a CUDA tensor, ``core.quantize.adaptive_quantize`` (its plain
+  version, the textbook dequantize round-trip error) for a CPU tensor.
+
+Every op dispatches on where its input lives: a CUDA tensor goes through
+the kernel, a CPU tensor through the plain version.
 """
 
 from __future__ import annotations
@@ -27,10 +33,11 @@ import dataclasses
 import torch
 
 from ...core import packing
-from ...core.quantize import Quantized, recip32
-from ..build import LaunchCounter, check, library, pick_impl, stream_of
+from ...core.quantize import Quantized, adaptive_quantize, recip32
+from ..build import LaunchCounter, check, library, stream_of
 
-LAUNCHES = LaunchCounter()
+LAUNCHES = LaunchCounter()                 # quant_pack kernel launches
+ADAPTIVE_QUANT_LAUNCHES = LaunchCounter()  # adaptive_quant kernel launches
 
 MAX_DIM = 1024  # the kernel keeps a row in registers: at most 32 values a lane
 
@@ -160,12 +167,12 @@ def quant_pack_torch(x: torch.Tensor, *, bits: int, num_bins: int,
 # ---------------------------------------------------------------------------
 
 
-def quant_pack_cuda(x: torch.Tensor, *, bits: int, num_bins: int,
-                    n_steps: int) -> PackedQuant:
-    """The hand-written Hopper kernel. ``x`` f32 (rows, dim), contiguous,
-    on a CUDA device, dim <= 1024, 1 <= bits <= 8."""
+def _check_rows(x: torch.Tensor, bits: int, what: str):
+    """The arguments both row-wise kernels take: f32 (rows, dim),
+    contiguous, on a CUDA device, dim <= 1024, 1 <= bits <= 8, rows < 2^31.
+    → (rows, dim)."""
     if not x.is_cuda:
-        raise ValueError("quant_pack_cuda needs a CUDA tensor")
+        raise ValueError(f"{what} needs a CUDA tensor")
     if x.dtype != torch.float32:
         raise TypeError(f"x must be float32, got {x.dtype}")
     if x.dim() != 2 or not x.is_contiguous():
@@ -177,6 +184,14 @@ def quant_pack_cuda(x: torch.Tensor, *, bits: int, num_bins: int,
         raise ValueError(f"bits must be in [1, 8], got {bits}")
     if rows >= 2 ** 31:
         raise ValueError(f"{rows} rows do not fit the kernel's int rows")
+    return rows, dim
+
+
+def quant_pack_cuda(x: torch.Tensor, *, bits: int, num_bins: int,
+                    n_steps: int) -> PackedQuant:
+    """The hand-written Hopper kernel. ``x`` f32 (rows, dim), contiguous,
+    on a CUDA device, dim <= 1024, 1 <= bits <= 8."""
+    rows, dim = _check_rows(x, bits, "quant_pack_cuda")
     count = rows * dim
     nwords = (count * bits + 31) // 32
     words = torch.empty(nwords, dtype=torch.uint32, device=x.device)
@@ -200,25 +215,25 @@ def quant_pack_cuda(x: torch.Tensor, *, bits: int, num_bins: int,
 
 
 def quant_pack(x: torch.Tensor, *, bits: int, method: str = "adaptive",
-               num_bins=None, ratio=None, impl: str = "auto") -> PackedQuant:
+               num_bins=None, ratio=None) -> PackedQuant:
     """Fused quantize + bit-pack: (rows, dim) f32 → packed uint32 words +
     per-row scale/zero, entirely on ``x``'s device."""
     num_bins, n_steps = _resolve_steps(method, bits, num_bins, ratio)
-    if pick_impl(impl, x) == "cuda":
+    if x.is_cuda:
         return quant_pack_cuda(x, bits=bits, num_bins=num_bins,
                                n_steps=n_steps)
     return quant_pack_torch(x, bits=bits, num_bins=num_bins, n_steps=n_steps)
 
 
 def quant_codes(x: torch.Tensor, *, bits: int, method: str = "adaptive",
-                num_bins=None, ratio=None, impl: str = "auto") -> Quantized:
+                num_bins=None, ratio=None) -> Quantized:
     """The fused-path quantizer WITHOUT the pack — for the host
     ``pack_bits`` fallback and as the unpacked decode oracle. Codes equal
     :func:`quant_pack`'s: the kernel path runs the kernel and unpacks its
     words, the plain path shares ``_quant_torch``."""
     rows, dim = x.shape
     num_bins, n_steps = _resolve_steps(method, bits, num_bins, ratio)
-    if pick_impl(impl, x) == "torch":
+    if not x.is_cuda:
         codes, scale, zero = _quant_torch(x, bits, num_bins, n_steps)
         return Quantized(codes, scale, zero, bits=bits)
     pq = quant_pack_cuda(x, bits=bits, num_bins=num_bins, n_steps=n_steps)
@@ -227,3 +242,41 @@ def quant_codes(x: torch.Tensor, *, bits: int, method: str = "adaptive",
         bits, pq.count).reshape(rows, dim)
     return Quantized(torch.from_numpy(codes).to(x.device), pq.scale,
                      pq.zero, bits=bits)
+
+
+# ---------------------------------------------------------------------------
+# The unpacked op
+# ---------------------------------------------------------------------------
+
+
+def adaptive_quant_cuda(x: torch.Tensor, *, bits: int, num_bins: int,
+                        ratio: float) -> Quantized:
+    """The hand-written Hopper kernel of the unpacked op. ``x`` f32
+    (rows, dim), contiguous, on a CUDA device, dim <= 1024, 1 <= bits <= 8."""
+    rows, dim = _check_rows(x, bits, "adaptive_quant_cuda")
+    if num_bins < 1:
+        raise ValueError(f"num_bins must be >= 1, got {num_bins}")
+    codes = torch.empty((rows, dim), dtype=torch.uint8, device=x.device)
+    scale = torch.empty(rows, dtype=torch.float32, device=x.device)
+    zero = torch.empty(rows, dtype=torch.float32, device=x.device)
+    if rows:
+        lib = library()
+        with torch.cuda.device(x.device):
+            err = lib.adaptive_quant_launch(
+                x.data_ptr(), codes.data_ptr(), scale.data_ptr(),
+                zero.data_ptr(), rows, dim, bits, num_bins,
+                int(ratio * num_bins), stream_of(x))
+            check(err, "adaptive_quant_launch")
+            ADAPTIVE_QUANT_LAUNCHES.add()
+    return Quantized(codes, scale, zero, bits=bits)
+
+
+def adaptive_quant(x: torch.Tensor, bits: int = 4, num_bins: int = 45,
+                   ratio: float = 0.2) -> Quantized:
+    """Row-wise adaptive asymmetric quantization (paper §4.2.3), unpacked:
+    (rows, dim) → uint8 codes (rows, dim), scale and zero (rows,), where
+    ``x`` lives: the kernel for a CUDA tensor, the plain version
+    (``core.quantize.adaptive_quantize``) for a CPU tensor."""
+    if x.is_cuda:
+        return adaptive_quant_cuda(x, bits=bits, num_bins=num_bins, ratio=ratio)
+    return adaptive_quantize(x, bits, num_bins, ratio)

@@ -27,9 +27,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# Per-source extra flags. quant_pack keeps every multiply and add separately
-# rounded so its error sums round like the reference's.
-EXTRA_FLAGS = {"quant_pack.cu": ["-fmad=false"]}
+# Per-source extra flags. The two quantizers keep every multiply and add
+# separately rounded so their error sums round like their plain versions'.
+EXTRA_FLAGS = {"quant_pack.cu": ["-fmad=false"],
+               "adaptive_quant.cu": ["-fmad=false"]}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -109,6 +110,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.embedding_bag_launch.restype = i32
     lib.dot_interaction_launch.argtypes = [vp, vp, i32, i32, i32, i32, vp]
     lib.dot_interaction_launch.restype = i32
+    lib.adaptive_quant_launch.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
+                                          i32, vp]
+    lib.adaptive_quant_launch.restype = i32
+    lib.flash_attention_launch.argtypes = ([vp] * 4 + [i32] * 6 + [i64] * 9
+                                           + [ctypes.c_float, i32, i32, vp])
+    lib.flash_attention_launch.restype = i32
 
 
 def library() -> ctypes.CDLL:
@@ -155,22 +162,6 @@ def stream_of(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def pick_impl(impl: str, t) -> str:
-    """Resolve a wrapper's ``impl`` knob for tensor ``t``: "auto" is the
-    kernel for a CUDA tensor and the plain version for a CPU tensor.
-    "cuda" on a CPU tensor makes the kernel wrapper raise; "torch" on a
-    CUDA tensor raises here — a CUDA tensor goes through the kernel."""
-    if impl == "auto":
-        return "cuda" if t.is_cuda else "torch"
-    if impl not in ("cuda", "torch"):
-        raise ValueError(f"unknown impl {impl!r}: want 'auto', 'cuda' or 'torch'")
-    if impl == "torch" and t.is_cuda:
-        raise ValueError("impl='torch' with a CUDA tensor: CUDA tensors go "
-                         "through the kernel (call the module's *_torch "
-                         "function to run the plain version on the card)")
-    return impl
 
 
 def check(err: int, what: str) -> None:

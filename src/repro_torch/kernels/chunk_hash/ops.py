@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from ..build import LaunchCounter, check, library, pick_impl, stream_of
+from ..build import LaunchCounter, check, library, stream_of
 from .ref import PRIME1, PRIME2, PRIME3, chunk_hash32, finalize, hash_words_np
 
 _MASK = 0xFFFFFFFF
@@ -80,13 +80,12 @@ def launch_sum(words: torch.Tensor, count: int, acc: torch.Tensor) -> None:
         LAUNCHES.add()
 
 
-def chunk_hash32_device(words: torch.Tensor, count=None,
-                        impl: str = "auto") -> int:
+def chunk_hash32_device(words: torch.Tensor, count=None) -> int:
     """Hash ``words[:count]`` (uint32 stream) where it lives; returns the
-    Python int hash. ``impl``: "auto" (the kernel for a CUDA tensor, the
-    plain version for a CPU tensor), "cuda", "torch"."""
+    Python int hash: the kernel for a CUDA tensor, the plain version for a
+    CPU tensor."""
     n = int(words.shape[0]) if count is None else int(count)
-    if pick_impl(impl, words) == "cuda":
+    if words.is_cuda:
         return hash_words_cuda(words, n)
     return hash_words_torch(words, n)
 

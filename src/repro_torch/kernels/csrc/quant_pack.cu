@@ -34,31 +34,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "warp_reduce.cuh"
+
 namespace {
 
 constexpr float kBig = 3.4e38f;
 constexpr int kRowsPerBlock = 32;
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float warp_min(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
 
 // scale^2 * sum over the row of (r - rint(clip(r, 0, levels)))^2 with
 // r = (x - lo) * (1 / scale): the reference's _err_pair for one candidate.

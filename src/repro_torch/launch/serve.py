@@ -8,14 +8,16 @@ staleness. Each refresh is a full ``restore()``, because the whole model
 is rebuilt; replicas that serve embeddings only use the delta subscriber
 (``repro_torch.serve``), which pays touched-row bytes per refresh.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch dlrm-rm2 \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch dlrm-rm2|bert4rec \
       --ckpt-dir CKPT_DIR --requests 200 --batch 64 --refresh-every 50 \
       [--reduced | --full-config] [--vocab-cap ROWS] [--device cuda|cpu]
 
 Serves the ``serve_p99`` cell on the card (``--device cuda``, the default)
 and raises when there is none; ``--device cpu`` runs the same path on the
 CPU. ``--full-config`` and ``--vocab-cap`` must match the train launcher's
-flags that wrote the chain, so the tables have the same shapes.
+flags that wrote the chain, so the tables have the same shapes. dlrm-rm2
+answers click probabilities, bert4rec next-item scores for 100 candidates
+per request.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ def main(argv=None):
     # serve_p99 is the online-inference cell of every recsys arch
     bundle = get_cell(args.arch, "serve_p99", reduced=args.reduced,
                       device=args.device, vocab_cap=args.vocab_cap)
+    answers = "scores" if args.arch == "bert4rec" else "probabilities"
     store = LocalFSStore(args.ckpt_dir)
     if mf.latest_step(store) is None:
         print(f"no checkpoints in {args.ckpt_dir}; run repro_torch.launch.train first")
@@ -72,10 +75,10 @@ def main(argv=None):
                     print(f"  refreshed to checkpoint step {step} "
                           f"(staleness reset after {served} requests)")
             batch = batch_for_cell(bundle, 50_000 + i)
-            t0 = time.monotonic()  # host arrays in, host probabilities out
-            probs = bundle.step_fn(params, batch_to_device(batch, bundle.device)).cpu()
+            t0 = time.monotonic()  # host arrays in, host answers out
+            out = bundle.step_fn(params, batch_to_device(batch, bundle.device)).cpu()
             lat.append(time.monotonic() - t0)
-            served += int(probs.shape[0])
+            served += int(out.shape[0])
             if served >= args.requests:
                 break
     finally:
@@ -84,7 +87,7 @@ def main(argv=None):
     print(f"served {served} requests in {len(lat)} batches on {bundle.device}; "
           f"p50 {lat_ms[len(lat_ms)//2]:.2f} ms  "
           f"p99 {lat_ms[int(len(lat_ms)*0.99)]:.2f} ms per batch (host arrays "
-          f"in, host probabilities out)")
+          f"in, host {answers} out)")
     return 0
 
 

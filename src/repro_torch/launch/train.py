@@ -1,6 +1,6 @@
 """Training launcher CLI.
 
-  PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-rm2 \
+  PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-rm2|bert4rec \
       --shape train_batch --steps 100 --interval 20 --bits 4 \
       --policy intermittent --ckpt-dir CKPT_DIR [--reduced | --full-config] \
       [--vocab-cap ROWS] [--fail-at 60] [--device cuda|cpu]

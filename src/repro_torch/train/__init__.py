@@ -7,5 +7,6 @@ from .state import (
     state_from_numpy,
     state_to_snapshot,
 )
+from .steps import make_train_step
 
 __all__ = [k for k in dir() if not k.startswith("_")]

@@ -12,7 +12,10 @@ exact. ``embedding_bag`` is bit-equal at H = 1 (a bag of one row is that
 row) and within rtol/atol 1e-5 at H > 1 (the plain version may sum in
 another order); ``dot_interaction`` within rtol/atol 1e-4 (the f32 dots
 are summed in another order), as ``tests/test_kernels.py`` holds the
-Pallas kernels.
+Pallas kernels. ``flash_attention`` within 2e-3 in f32 (sums in another
+order) and 3e-2 in bf16 (outputs rounded to bf16 may land on neighbouring
+values), the reference's bars for its kernel; the unpacked
+``adaptive_quant`` at the quantizers' bars above.
 """
 
 import numpy as np
@@ -99,14 +102,16 @@ def test_wrappers_check_their_arguments(cuda):
 
 
 def test_cuda_tensors_never_take_the_plain_path(cuda):
-    from repro_torch.kernels.adaptive_quant.ops import quant_pack
-    from repro_torch.kernels.chunk_hash.ops import chunk_hash32_device
+    from repro_torch.kernels.adaptive_quant import ops as aq
+    from repro_torch.kernels.chunk_hash import ops as ch
 
-    with pytest.raises(ValueError, match="CUDA tensors go through the kernel"):
-        quant_pack(torch.zeros((4, 8), device=cuda), bits=4, impl="torch")
-    with pytest.raises(ValueError, match="CUDA tensors go through the kernel"):
-        chunk_hash32_device(torch.zeros(8, dtype=torch.int32, device=cuda),
-                            impl="torch")
+    before = aq.LAUNCHES.count
+    aq.quant_pack(torch.zeros((4, 8), device=cuda), bits=4)
+    aq.quant_codes(torch.zeros((4, 8), device=cuda), bits=4)
+    assert aq.LAUNCHES.count == before + 2
+    before = ch.LAUNCHES.count
+    ch.chunk_hash32_device(torch.zeros(8, dtype=torch.int32, device=cuda))
+    assert ch.LAUNCHES.count == before + 1
 
 
 EB_SHAPES = [(1 << 20, 64, 512, 1), (1000, 64, 32, 4), (512, 10, 16, 1),
@@ -228,3 +233,134 @@ def test_serving_forward_launches_each_kernel_per_batch(cuda):
                        interact=di.dot_interaction_torch)
     assert probs.is_cuda and torch.isfinite(probs).all()
     torch.testing.assert_close(probs, plain, rtol=0, atol=1e-2)
+
+
+FLASH_SHAPES = [(2, 128, 4, 2, 64, True), (1, 256, 8, 8, 32, False),
+                (2, 128, 2, 1, 100, True), (1, 192, 4, 4, 64, True),
+                (2, 200, 2, 2, 32, False), (3, 70, 2, 2, 128, True),
+                (512, 200, 2, 2, 32, False), (1, 1, 1, 1, 1, True)]
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda, B, S, Hq, Hkv, D, causal, dtype):
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    rng = np.random.default_rng(B + S + D)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, S, h, D)).astype(np.float32))
+               .to(cuda).to(dtype) for h in (Hq, Hkv, Hkv))
+    before = ops.LAUNCHES.count
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert ops.LAUNCHES.count == before + 1
+    assert got.dtype == dtype and got.shape == q.shape and got.is_contiguous()
+    tol = 2e-3 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got, ref.flash_attention_torch(q, k, v, causal=causal),
+                               rtol=tol, atol=tol)
+
+
+def test_flash_attention_takes_strided_views(cuda):
+    """q, k, v as column slices of one fused projection: the kernel reads
+    them through their strides, and equals its result on copies."""
+    from repro_torch.kernels.flash_attention import ops
+
+    qkv = torch.randn((4, 200, 3, 2, 32), device=cuda).to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert not q.is_contiguous()
+    got = ops.flash_attention(q, k, v, causal=False)
+    want = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                               causal=False)
+    assert torch.equal(got, want)
+
+
+def test_flash_attention_past_2_31_elements(cuda):
+    """170,000 x 200 x 2 x 32 bf16 holds 2.18e9 elements a tensor, so the
+    last batch rows' offsets pass 2^31; they must equal the plain version
+    on those rows alone."""
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    B = 170_000
+    q, k, v = (torch.empty((B, 200, 2, 32), dtype=torch.bfloat16, device=cuda)
+               .normal_() for _ in range(3))
+    got = ops.flash_attention(q, k, v, causal=False)[-64:]
+    want = ref.flash_attention_torch(q[-64:], k[-64:], v[-64:], causal=False)
+    torch.testing.assert_close(got, want, rtol=3e-2, atol=3e-2)
+
+
+def test_flash_attention_checks_its_arguments(cuda):
+    from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
+
+    x = torch.zeros((1, 8, 2, 32), device=cuda)
+    with pytest.raises(TypeError):
+        flash_attention_cuda(x.half(), x.half(), x.half())
+    with pytest.raises(TypeError):
+        flash_attention_cuda(x, x.bfloat16(), x)
+    with pytest.raises(ValueError):
+        flash_attention_cuda(torch.zeros((1, 8, 2, 160), device=cuda),
+                             torch.zeros((1, 8, 2, 160), device=cuda),
+                             torch.zeros((1, 8, 2, 160), device=cuda))
+    with pytest.raises(ValueError):
+        flash_attention_cuda(torch.zeros((1, 8, 3, 32), device=cuda), x, x)
+    with pytest.raises(ValueError):
+        flash_attention_cuda(x.transpose(2, 3).contiguous().transpose(2, 3), x, x)
+
+
+@pytest.mark.parametrize("rows,dim", [(256, 64), (512, 10), (256, 128),
+                                      (512, 200), (1, 1024), (4099, 64)])
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+def test_adaptive_quant_kernel_matches_plain(cuda, rows, dim, bits):
+    from repro_torch.core.quantize import adaptive_quantize
+    from repro_torch.kernels.adaptive_quant import ops
+
+    x = _rows(rows, dim, cuda, seed=rows + dim + bits)
+    before = ops.ADAPTIVE_QUANT_LAUNCHES.count
+    got = ops.adaptive_quant(x, bits=bits, num_bins=25, ratio=0.5)
+    assert ops.ADAPTIVE_QUANT_LAUNCHES.count == before + 1
+    want = adaptive_quantize(x, bits, 25, 0.5)
+    assert got.codes.dtype == torch.uint8 and got.codes.shape == (rows, dim)
+    np.testing.assert_allclose(got.scale.cpu().numpy(), want.scale.cpu().numpy(),
+                               rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(got.zero.cpu().numpy(), want.zero.cpu().numpy(),
+                               rtol=1e-5, atol=1e-7)
+    assert (got.codes != want.codes).float().mean().item() <= 2e-3
+
+
+def test_adaptive_quant_past_2_31_elements(cuda):
+    """A 33,554,944 x 64 table holds 2.1e9 values: its last rows' offsets
+    pass 2^31 and must quantize as the plain version quantizes them alone."""
+    from repro_torch.core.quantize import adaptive_quantize
+    from repro_torch.kernels.adaptive_quant import ops
+
+    x = torch.empty((33_554_944, 64), device=cuda).normal_()
+    got = ops.adaptive_quant(x, bits=4, num_bins=45, ratio=0.2)
+    want = adaptive_quantize(x[-65536:], 4, 45, 0.2)
+    torch.testing.assert_close(got.scale[-65536:], want.scale, rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(got.zero[-65536:], want.zero, rtol=1e-5, atol=1e-7)
+    assert (got.codes[-65536:] != want.codes).float().mean().item() <= 2e-3
+
+
+def test_bert4rec_serving_launches_flash_twice_per_forward(cuda):
+    """The bert4rec serve cell on the card: one ``flash_attention`` launch
+    per block per forward slice, and the scores through the plain version
+    within 2e-2: the model is bf16, and attention outputs one bf16 step
+    apart move a score by far less than a wrong mask or head would."""
+    from repro_torch.configs import get_cell
+    from repro_torch.data.cells import batch_for_cell
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import bert4rec
+    from repro_torch.train.loop import batch_to_device
+
+    p99 = get_cell("bert4rec", "serve_p99", reduced=True, device=cuda)
+    bulk = get_cell("bert4rec", "serve_bulk", reduced=True, device=cuda)
+    params = p99.make_state().params
+    fa.LAUNCHES.reset()
+    for i in range(3):
+        scores = p99.step_fn(params, batch_to_device(batch_for_cell(p99, i), cuda))
+    assert fa.LAUNCHES.count == 3 * 2
+    b = batch_to_device(batch_for_cell(bulk, 0), cuda)
+    bulk.step_fn(params, b)
+    slices = -(-b["items"].shape[0] // bulk.cfg.serve_slice_rows)
+    assert slices > 1 and fa.LAUNCHES.count == 3 * 2 + 2 * slices
+    plain = bert4rec.serve(params, batch_to_device(batch_for_cell(p99, 2), cuda),
+                           p99.cfg, attention=fa.flash_attention_torch)
+    assert scores.shape == (16, 100) and torch.isfinite(scores).all()
+    torch.testing.assert_close(scores, plain, rtol=0, atol=2e-2)

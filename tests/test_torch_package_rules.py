@@ -100,6 +100,15 @@ def test_cuda_without_card_raises_in_the_cell(monkeypatch):
         get_cell("dlrm-rm2", "train_batch", reduced=True)
 
 
+def test_cuda_without_card_raises_in_the_bert4rec_cells(monkeypatch):
+    from repro_torch.configs import get_cell
+
+    _no_card(monkeypatch)
+    for shape in ("train_batch", "serve_p99"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            get_cell("bert4rec", shape, reduced=True)
+
+
 def test_cuda_without_card_raises_in_the_launcher(monkeypatch, tmp_path):
     from repro_torch.launch import train
 
@@ -118,20 +127,24 @@ def test_cuda_without_card_raises_in_the_serve_launcher(monkeypatch, tmp_path):
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
-    """The kernel paths never run on a CPU tensor: the wrappers raise."""
-    from repro_torch.kernels.adaptive_quant.ops import quant_pack, quant_pack_cuda
-    from repro_torch.kernels.chunk_hash.ops import chunk_hash32_device, hash_words_cuda
+    """The kernel paths never run on a CPU tensor: the kernel entries raise,
+    and the public ops take their plain versions without a launch."""
+    from repro_torch.kernels.adaptive_quant import ops as aq
+    from repro_torch.kernels.chunk_hash import ops as ch
 
     x = torch.zeros((4, 8))
     with pytest.raises(ValueError, match="CUDA"):
-        quant_pack_cuda(x, bits=4, num_bins=45, n_steps=9)
-    with pytest.raises(ValueError, match="CUDA"):
-        quant_pack(x, bits=4, impl="cuda")
+        aq.quant_pack_cuda(x, bits=4, num_bins=45, n_steps=9)
+    before = aq.LAUNCHES.count
+    aq.quant_pack(x, bits=4)
+    aq.quant_codes(x, bits=4)
+    assert aq.LAUNCHES.count == before
     w = torch.zeros(8, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        hash_words_cuda(w, 8)
-    with pytest.raises(ValueError, match="CUDA"):
-        chunk_hash32_device(w, impl="cuda")
+        ch.hash_words_cuda(w, 8)
+    before = ch.LAUNCHES.count
+    ch.chunk_hash32_device(w)
+    assert ch.LAUNCHES.count == before
 
 
 def test_launcher_runs_on_cpu_when_asked(tmp_path, capsys):
