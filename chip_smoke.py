@@ -35,7 +35,7 @@ Phases:
      ``serve_p99`` (batch 512, 100 candidates each, 200 batches and a
      20-batch trace) and ``serve_bulk`` (262,144 rows in slices of 65,536,
      a warm-up batch and 3 timed), both blocks attending through
-     ``flash_attention``; the scores through the kernel against the plain
+     ``flash_attention``'s tensor-core route (bf16), every launch of it; the scores through the kernel against the plain
      version; and the ``adaptive_quant`` op on the trained item table at 2,
      3, 4 and 8 bits, its L2 error against uniform quantization's.
 
@@ -122,7 +122,33 @@ def kernel_ms(fn, name: str, reps: int = 30) -> float:
     """Median device time of the kernels whose name contains ``name``, from
     a ``torch.profiler`` trace of ``reps`` calls of ``fn`` (after warm-up):
     unlike events around a call, it leaves out the host's launch overhead.
-    Raises where the trace does not hold one such kernel per call."""
+    A trace that does not hold one such kernel per call is taken again (the
+    profiler has been seen to drop one event of 20); raises if the third
+    does not either."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+        if len(us) == reps:
+            return statistics.median(us) / 1e3
+        log(f"profiler trace held {len(us)} {name} kernels for {reps} calls; again")
+    check(False, f"profiler trace holds {len(us)} {name} kernels for {reps} calls")
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time per call of ``fn``, all of its kernels summed, from a
+    ``torch.profiler`` trace of ``reps`` calls after warm-up: a library
+    call's kernel time, whatever its kernels are named, to set beside a
+    hand-written kernel's ``kernel_ms``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -133,11 +159,10 @@ def kernel_ms(fn, name: str, reps: int = 30) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
-    check(len(us) == reps, f"profiler trace holds {len(us)} {name} kernels "
-          f"for {reps} calls")
-    return statistics.median(us) / 1e3
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(us > 0, "the profiler saw device time")
+    return us / reps / 1e3
 
 
 def bound(nbytes: float, instrs: dict):
@@ -509,21 +534,26 @@ B4R_ITEMS = 1_000_448  # bert4rec's published catalog, padded to 512
 
 def flash_bound(B, Sq, Sk, Hq, D, itemsize):
     """(ms, "bytes" or "operations") for one attention call: q, k, v read
-    once and o written once against the two products' FLOPs on the bf16
-    tensor cores and the softmax's exps on the 16-lane conversion pipe."""
+    once and o written once against the two products' FLOPs (bf16 on the
+    tensor cores; f32, which the f32 route keeps, at the 67 TFLOP/s of f32
+    FMAs) and the softmax's exps on the 16-lane conversion pipe."""
     t_bytes = (2 * B * Sq * Hq * D + 2 * B * Sk * Hq * D) * itemsize / PEAK_BYTES_S * 1e3
-    t_mma = 4.0 * B * Hq * Sq * Sk * D / PEAK_BF16_FLOPS * 1e3
+    peak = PEAK_BF16_FLOPS if itemsize == 2 else 67e12
+    t_mma = 4.0 * B * Hq * Sq * Sk * D / peak * 1e3
     t_exp = B * Hq * Sq * Sk / (LANES_PER_CLOCK["xu"] * SMS * CLOCK_HZ) * 1e3
     t_ops = max(t_mma, t_exp)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def check_and_time_flash(gen, dev):
-    """``flash_attention`` against its plain version on the card: the
+    """``flash_attention`` against its plain version on the card, on both
+    routes (bf16: the tensor-core kernel; f32: the SIMT kernel): the
     reference's test shapes, bert4rec's serving shapes (batch 512, and one
-    65,536-row slice of serve_bulk) in bf16 and f32, causal and not; then
-    timed at the bert4rec shapes, bf16, not causal, beside
-    ``F.scaled_dot_product_attention`` on the same inputs."""
+    65,536-row slice of serve_bulk) causal and not, and the tensor-core
+    tiling's ragged cases (S of 1, 17, 200, 257; D of 16 to 128; 4 q heads
+    on one kv head; Sq != Sk; keys past one staged chunk). Then timed at the
+    bert4rec shapes, not causal, beside ``F.scaled_dot_product_attention``
+    on the same inputs: bf16 at batch 512 and on the slice, f32 at 512."""
     import torch
     import torch.nn.functional as F
 
@@ -532,21 +562,33 @@ def check_and_time_flash(gen, dev):
     from repro_torch.kernels.flash_attention import ref as fr
 
     checks = []
-    shapes = [(2, 128, 4, 2, 64, True, torch.float32), (1, 256, 8, 8, 32, False, torch.float32),
-              (2, 128, 2, 1, 100, True, torch.float32), (1, 192, 4, 4, 64, True, torch.float32),
-              (1, 128, 4, 2, 64, True, torch.bfloat16), (2, 200, 2, 2, 32, False, torch.float32)]
-    shapes += [(b, 200, 2, 2, 32, c, dt) for b in (512, B4R_SLICE) for c in (False, True)
-               for dt in (torch.bfloat16, torch.float32)]
-    for B, S, Hq, Hkv, D, causal, dt in shapes:
-        q = torch.randn((B, S, Hq, D), generator=gen, device=dev).to(dt)
-        k, v = (torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(dt)
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (B, Sq, Sk, Hq, Hkv, D, causal, dtype)
+    shapes = [(2, 128, 128, 4, 2, 64, True, f32), (1, 256, 256, 8, 8, 32, False, f32),
+              (2, 128, 128, 2, 1, 100, True, f32), (1, 192, 192, 4, 4, 64, True, f32),
+              (1, 128, 128, 4, 2, 64, True, bf16), (2, 200, 200, 2, 2, 32, False, f32)]
+    shapes += [(b, 200, 200, 2, 2, 32, c, dt) for b in (512, B4R_SLICE) for c in (False, True)
+               for dt in (bf16, f32)]
+    shapes += [(3, 17, 17, 4, 1, 16, True, dt) for dt in (bf16, f32)]
+    shapes += [(b, sq, sk, hq, hkv, d, c, bf16) for b, sq, sk, hq, hkv, d, c in (
+        (2, 257, 257, 4, 1, 64, False), (4, 1, 200, 2, 2, 32, False),
+        (2, 200, 17, 2, 1, 128, False), (2, 257, 130, 2, 2, 100, True),
+        (1, 17, 257, 4, 1, 128, True), (2, 200, 200, 4, 1, 32, True),
+        (1, 300, 700, 4, 2, 64, False), (2, 600, 600, 2, 1, 128, True),
+        (1, 64, 1500, 2, 2, 32, False), (1, 1, 1, 1, 1, 1, True))]
+    for B, Sq, Sk, Hq, Hkv, D, causal, dt in shapes:
+        q = torch.randn((B, Sq, Hq, D), generator=gen, device=dev).to(dt)
+        k, v = (torch.randn((B, Sk, Hkv, D), generator=gen, device=dev).to(dt)
                 for _ in range(2))
+        route = fa.MMA_LAUNCHES if dt == bf16 else fa.SIMT_LAUNCHES
+        before = route.count
         got = fa.flash_attention_cuda(q, k, v, causal=causal)
+        check(route.count == before + 1, f"{dt} went through its route")
         want = fr.flash_attention_torch(q, k, v, causal=causal)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
-        tol = 2e-3 if dt == torch.float32 else 3e-2
-        out = dict(shape=[B, S, Hq, Hkv, D], causal=causal,
+        tol = 2e-3 if dt == f32 else 3e-2
+        out = dict(shape=[B, Sq, Sk, Hq, Hkv, D], causal=causal,
                    dtype=str(dt).split(".")[-1], max_abs_err=err, tol=tol)
         checks.append(out)
         check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
@@ -555,37 +597,56 @@ def check_and_time_flash(gen, dev):
     torch.cuda.empty_cache()
     log("flash_attention checks: " + json.dumps(checks))
 
-    def times(B, n_sets):
+    def times(B, n_sets, dt, symbol):
         sets = [tuple(torch.randn((B, 200, 2, 32), generator=gen, device=dev)
-                      .to(torch.bfloat16) for _ in range(3)) for _ in range(n_sets)]
+                      .to(dt) for _ in range(3)) for _ in range(n_sets)]
         kern = _rotating(lambda q, k, v: fa.flash_attention_cuda(q, k, v, causal=False), sets)
         lib = _rotating(lambda q, k, v: F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)), sets)
-        b_ms, b_by = flash_bound(B, 200, 200, 2, 32, 2)
-        r = dict(ms=kernel_ms(kern, "flash_kernel"), call_ms=time_ms(kern),
+        b_ms, b_by = flash_bound(B, 200, 200, 2, 32, sets[0][0].element_size())
+        r = dict(ms=kernel_ms(kern, symbol), call_ms=time_ms(kern),
                  plain_ms=time_ms(_rotating(lambda q, k, v: fr.flash_attention_torch(
                      q, k, v, causal=False), sets), reps=5 if B > 512 else 20),
-                 library_ms=time_ms(lib, reps=20), bound_ms=b_ms, bound_by=b_by)
+                 library_ms=time_ms(lib, reps=20), library_device_ms=device_ms(lib),
+                 bound_ms=b_ms, bound_by=b_by)
+        r["frac_of_bound"] = b_ms / r["ms"]
+        # kernel time against the library's, each from the profiler; and
+        # one call against one call, each between events
+        r["vs_library"] = r["ms"] / r["library_device_ms"]
+        r["call_vs_library_call"] = r["call_ms"] / r["library_ms"]
         del sets
         torch.cuda.empty_cache()
         return r
 
     # 8 sets of 13 MB each at batch 512 exceed the 50 MB L2, as new request
     # batches do; one 65,536-row set is 1.7 GB a tensor
-    p99, bulk = times(512, 8), times(B4R_SLICE, 2)
-    for name, r in (("serve_p99 batch 512", p99), (f"serve_bulk slice {B4R_SLICE}", bulk)):
-        log(f"flash_attention {name}, bf16, (B, 200, 2, 32): kernel {r['ms']:.4f} ms "
+    p99 = times(512, 8, bf16, "flash_kernel_mma")
+    bulk = times(B4R_SLICE, 2, bf16, "flash_kernel_mma")
+    p99_f32 = times(512, 8, f32, "flash_kernel_f32")
+    for name, r in (("tensor-core route, serve_p99 batch 512, bf16", p99),
+                    (f"tensor-core route, serve_bulk slice {B4R_SLICE}, bf16", bulk),
+                    ("f32 route, batch 512, f32", p99_f32)):
+        log(f"flash_attention {name}, (B, 200, 2, 32): kernel {r['ms']:.4f} ms "
             f"(profiler; one call between events {r['call_ms']:.4f} ms), plain "
             f"{r['plain_ms']:.4f} ms, F.scaled_dot_product_attention "
-            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+            f"{r['library_device_ms']:.4f} ms (profiler; one call between events "
+            f"{r['library_ms']:.4f} ms); kernel / SDPA {r['vs_library']:.3f}, call / "
+            f"call {r['call_vs_library_call']:.3f}; bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']}), {100 * r['frac_of_bound']:.1f}% "
+            f"of bound")
     return dict(name="flash_attention", route="cuda",
-                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                source="src/repro_torch/kernels/csrc/flash_attention_mma.cu",
                 replaces="src/repro/kernels/flash_attention/kernel.py:38",
                 launches=None, max_abs_err=max(c["max_abs_err"] for c in checks),
                 shape=f"serve_bulk slice, ({B4R_SLICE}, 200, 2, 32) bf16, not causal",
                 **{k: bulk[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                        "library_ms", "call_ms")},
-                serve_p99=p99, checks=len(checks))
+                                        "library_ms", "call_ms", "frac_of_bound",
+                                        "vs_library", "library_device_ms",
+                                        "call_vs_library_call")},
+                serve_p99=p99, checks=len(checks),
+                f32_route=dict(source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                               shape="(512, 200, 2, 32) f32, not causal",
+                               launches_on_paths=0, **p99_f32))
 
 
 def check_and_time_adaptive_quant(gen, dev):
@@ -1075,7 +1136,8 @@ def phase_bert4rec(kernels, root, device="cuda", reduced=False, p99_batches=200,
         """One request batch: host arrays in, host scores out."""
         return bnd.step_fn(params, batch_to_device(batch, bnd.device)).cpu().numpy()
 
-    fa.LAUNCHES.reset()
+    fa.MMA_LAUNCHES.reset()
+    fa.SIMT_LAUNCHES.reset()
     aq.ADAPTIVE_QUANT_LAUNCHES.reset()
     t0 = time.monotonic()
     mgr = CheckNRunManager(LocalFSStore(root), CheckpointConfig(device=device))
@@ -1102,10 +1164,11 @@ def phase_bert4rec(kernels, root, device="cuda", reduced=False, p99_batches=200,
             answer(p99, params, b)
         traced_ms = (time.monotonic() - t1) * 1e3 / len(traced)
     dev_ms, top = _device_split(prof, len(traced), {
-        "flash_attention": ("flash_kernel",), "gemm": ("gemm", "nvjet", "xmma"),
-        "memcpy": ("memcpy",)})
+        "flash_attention": ("flash_kernel_mma",), "flash_f32": ("flash_kernel",),
+        "gemm": ("gemm", "nvjet", "xmma"), "memcpy": ("memcpy",)})
     busy_ms = sum(dev_ms.values())
-    check(dev_ms.get("flash_attention", 0) > 0, f"the traced batches ran flash: {dev_ms}")
+    check(dev_ms.get("flash_attention", 0) > 0 and "flash_f32" not in dev_ms,
+          f"the traced batches ran flash on the tensor-core route alone: {dev_ms}")
     log(f"bert4rec serve_p99 trace, per batch: wall {traced_ms:.3f} ms under the "
         f"profiler, device busy {busy_ms:.3f} ms "
         f"({json.dumps({k: round(v, 4) for k, v in dev_ms.items()})}), device idle "
@@ -1122,11 +1185,12 @@ def phase_bert4rec(kernels, root, device="cuda", reduced=False, p99_batches=200,
     rows_s = n_bulk * (bulk_batches - 1) / bulk_s
     slices = -(-n_bulk // bulk.cfg.serve_slice_rows)
     n_fwd = p99_batches + len(traced) + slices * bulk_batches
-    check(fa.LAUNCHES.count == 2 * n_fwd,
-          f"flash launches {fa.LAUNCHES.count} == 2 blocks x {n_fwd} forwards "
-          f"({p99_batches + len(traced)} p99 batches, {bulk_batches} bulk batches "
-          f"of {slices} slices)")
-    launches = {"flash_attention": fa.LAUNCHES.count}
+    check(fa.MMA_LAUNCHES.count == 2 * n_fwd and fa.SIMT_LAUNCHES.count == 0,
+          f"flash launches {fa.MMA_LAUNCHES.count} on the tensor-core route == 2 "
+          f"blocks x {n_fwd} forwards ({p99_batches + len(traced)} p99 batches, "
+          f"{bulk_batches} bulk batches of {slices} slices), "
+          f"{fa.SIMT_LAUNCHES.count} on the f32 route")
+    launches = {"flash_attention": fa.MMA_LAUNCHES.count}
     log(f"bert4rec serve: restore of step {restored.step} (chain {restored.chain_len}) "
         f"to the first answer {first_s:.2f} s; serve_p99 {p99_batches} batches of {n_p99} "
         f"x 100 candidates: p50 {p50:.3f} ms, p99 {p99_ms:.3f} ms per batch (host "

@@ -113,9 +113,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.adaptive_quant_launch.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
                                           i32, vp]
     lib.adaptive_quant_launch.restype = i32
-    lib.flash_attention_launch.argtypes = ([vp] * 4 + [i32] * 6 + [i64] * 9
-                                           + [ctypes.c_float, i32, i32, vp])
-    lib.flash_attention_launch.restype = i32
+    lib.flash_attention_f32_launch.argtypes = ([vp] * 4 + [i32] * 6 + [i64] * 9
+                                               + [ctypes.c_float, i32, vp])
+    lib.flash_attention_f32_launch.restype = i32
+    lib.flash_attention_mma_launch.argtypes = ([vp] * 4 + [i32] * 6 + [i64] * 9
+                                               + [ctypes.c_float, i32, i32, i32, vp])
+    lib.flash_attention_mma_launch.restype = i32
 
 
 def library() -> ctypes.CDLL:

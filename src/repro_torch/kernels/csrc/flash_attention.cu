@@ -1,26 +1,27 @@
-// Online-softmax (flash) attention forward, on a Hopper card.
+// Online-softmax (flash) attention forward for f32 inputs, on the SIMT
+// pipes: the f32 route of flash_attention. bf16 inputs, which the bert4rec
+// serve path gives, take the tensor-core kernel in flash_attention_mma.cu.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
-// (flash_attention_pallas / flash_kernel): o = softmax(q k^T / sqrt(D)) v per
-// (batch, q head), with GQA (q head h reads kv head h / G), an optional
-// causal mask, f32 scores and f32 running max m, sum l and accumulator acc,
-// masked scores at exactly the f32 minimum, the final divide by
-// max(l, 1e-30), and the output in the input dtype (bf16 or f32).
+// (flash_attention_pallas / flash_kernel) for f32: o = softmax(q k^T /
+// sqrt(D)) v per (batch, q head), with GQA (q head h reads kv head h / G),
+// an optional causal mask, f32 scores and f32 running max m, sum l and
+// accumulator acc, masked scores at exactly the f32 minimum, the final
+// divide by max(l, 1e-30), and the output in f32.
 //
-// Bound: at the bert4rec serving shapes (S = 200, 2 heads of D = 32, bf16)
-// the card could finish in the time it takes to read q, k, v and write o
-// once: 2*S*D FLOP per score against 8*D bytes per row is far below the
-// tensor cores' ridge. This first kernel runs its products on the f32 FMA
-// pipes (2*D FMAs per score, with a shared-memory read for each), so the
-// FMA and shared-memory pipes, not memory, bound it; mma/wgmma tiles are
-// the later step.
+// Bound: reading q, k, v once and writing o once would bound it (2*S*D
+// FLOP per score against 16*D bytes per row), but its products run as f32
+// FMAs (2*D a score, each with a shared-memory read), so the FMA and
+// shared-memory pipes bound it. It keeps full f32 products, which the
+// tensor cores would round (bf16) or shorten (tf32); no main path runs f32
+// attention.
 //
 // Design: one block per (batch * q head, tile of 64 q rows); a loop over key
 // tiles of 32 inside the block takes the place of the TPU's sequential
 // "arbitrary" kv grid axis. Each q row is owned by TPR = ceil(D / 32)
 // adjacent threads, each holding 32 head dims of q and of acc in registers
 // (no padding of D to 128 lanes: D = 100 uses TPR = 4 with zero columns).
-// A key tile is staged in shared memory as f32, each 32-dim chunk of a row
+// A key tile is staged in shared memory, each 32-dim chunk of a row
 // padded to 36 floats so the TPR threads of a row read float4s from
 // distinct banks while the other rows' threads read the same address
 // (a broadcast). Scores of a tile are summed over the TPR threads by xor
@@ -32,7 +33,6 @@
 
 #include <cfloat>
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -43,26 +43,14 @@ constexpr int kBlockK = 32;   // keys per shared-memory tile
 constexpr int kChunk = 32;    // head dims per thread
 constexpr int kStride = 36;   // floats per 32-dim chunk in shared memory
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
 struct Strides {
   long long b, s, h;
 };
 
-template <typename T, int TPR>
+template <int TPR>
 __global__ void __launch_bounds__(kBlockQ * TPR)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
+flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk,
              int Hq, int Hkv, int D, Strides qs, Strides ks_, Strides vs_,
              float scale, int causal) {
   __shared__ __align__(16) float ks[kBlockK * TPR * kStride];
@@ -77,17 +65,17 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool live = qrow < Sq;
 
   float qr[kChunk], acc[kChunk];
-  const T* qp = q + b * qs.b + (long long)min(qrow, Sq - 1) * qs.s + h * qs.h;
+  const float* qp = q + b * qs.b + (long long)min(qrow, Sq - 1) * qs.s + h * qs.h;
 #pragma unroll
   for (int i = 0; i < kChunk; ++i) {
     const int d = t * kChunk + i;
-    qr[i] = d < D ? to_f32(qp[d]) : 0.f;
+    qr[i] = d < D ? qp[d] : 0.f;
     acc[i] = 0.f;
   }
   float m = kNegInf, l = 0.f;
 
-  const T* kb = k + b * ks_.b + hk * ks_.h;
-  const T* vb = v + b * vs_.b + hk * vs_.h;
+  const float* kb = k + b * ks_.b + hk * ks_.h;
+  const float* vb = v + b * vs_.b + hk * vs_.h;
   const int k_end = causal ? min(Sk, q0 + kBlockQ) : Sk;
   for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
     __syncthreads();
@@ -96,8 +84,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int key = k0 + j;
       const bool ok = key < Sk && d < D;
       const int so = (j * TPR + (d >> 5)) * kStride + (d & 31);
-      ks[so] = ok ? to_f32(kb[key * ks_.s + d]) : 0.f;
-      vs[so] = ok ? to_f32(vb[key * vs_.s + d]) : 0.f;
+      ks[so] = ok ? kb[key * ks_.s + d] : 0.f;
+      vs[so] = ok ? vb[key * vs_.s + d] : 0.f;
     }
     __syncthreads();
 
@@ -152,57 +140,46 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (live) {
     const float den = fmaxf(l, 1e-30f);
-    T* op = o + (((long long)b * Sq + qrow) * Hq + h) * D;
+    float* op = o + (((long long)b * Sq + qrow) * Hq + h) * D;
 #pragma unroll
     for (int i = 0; i < kChunk; ++i) {
       const int d = t * kChunk + i;
-      if (d < D) op[d] = from_f32<T>(acc[i] / den);
+      if (d < D) op[d] = acc[i] / den;
     }
   }
 }
 
-template <typename T, int TPR>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
-                   int Sq, int Sk, int Hq, int Hkv, int D, Strides qs,
+template <int TPR>
+cudaError_t launch(const float* q, const float* k, const float* v, float* o,
+                   int B, int Sq, int Sk, int Hq, int Hkv, int D, Strides qs,
                    Strides ks, Strides vs, float scale, int causal,
                    cudaStream_t stream) {
   const dim3 grid((unsigned)(B * Hq), (unsigned)((Sq + kBlockQ - 1) / kBlockQ));
-  flash_kernel<T, TPR><<<grid, kBlockQ * TPR, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, Sq, Sk, Hq, Hkv, D, qs, ks,
-      vs, scale, causal);
+  flash_kernel_f32<TPR><<<grid, kBlockQ * TPR, 0, stream>>>(
+      q, k, v, o, Sq, Sk, Hq, Hkv, D, qs, ks, vs, scale, causal);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     int B, int Sq, int Sk, int Hq, int Hkv, int D, Strides qs,
-                     Strides ks, Strides vs, float scale, int causal,
-                     cudaStream_t st) {
-  if (D <= 32) return launch<T, 1>(q, k, v, o, B, Sq, Sk, Hq, Hkv, D, qs, ks, vs, scale, causal, st);
-  if (D <= 64) return launch<T, 2>(q, k, v, o, B, Sq, Sk, Hq, Hkv, D, qs, ks, vs, scale, causal, st);
-  if (D <= 128) return launch<T, 4>(q, k, v, o, B, Sq, Sk, Hq, Hkv, D, qs, ks, vs, scale, causal, st);
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D), each with the given batch,
-// sequence and head strides (in elements) and unit stride along D; o: a
-// contiguous (B, Sq, Hq, D) of the same dtype (bf16 if is_bf16, else f32).
-// scale is the f32 1/sqrt(D) the scores are multiplied by. 1 <= D <= 128,
-// Hq % Hkv == 0, B * Hq < 2^31. Returns cudaGetLastError() after the launch.
-extern "C" int flash_attention_launch(
+// q: (B, Sq, Hq, D) f32; k, v: (B, Sk, Hkv, D) f32, each with the given
+// batch, sequence and head strides (in elements) and unit stride along D;
+// o: a contiguous (B, Sq, Hq, D) f32. scale is the f32 1/sqrt(D) the scores
+// are multiplied by. 1 <= D <= 128, Hq % Hkv == 0, B * Hq < 2^31. Returns
+// cudaGetLastError() after the launch.
+extern "C" int flash_attention_f32_launch(
     const void* q, const void* k, const void* v, void* o, int B, int Sq,
     int Sk, int Hq, int Hkv, int D, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh, long long vsb,
-    long long vss, long long vsh, float scale, int is_bf16, int causal,
-    void* stream) {
+    long long vss, long long vsh, float scale, int causal, void* stream) {
   if (B <= 0 || Sq <= 0) return (int)cudaGetLastError();
   if (Sk <= 0 || D <= 0 || Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
+  const float *qf = (const float*)q, *kf = (const float*)k, *vf = (const float*)v;
+  float* of = (float*)o;
   cudaStream_t st = (cudaStream_t)stream;
-  const cudaError_t err =
-      is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, Hq, Hkv, D, qs, ks, vs, scale, causal, st)
-              : dispatch<float>(q, k, v, o, B, Sq, Sk, Hq, Hkv, D, qs, ks, vs, scale, causal, st);
-  return (int)err;
+  if (D <= 32) return (int)launch<1>(qf, kf, vf, of, B, Sq, Sk, Hq, Hkv, D, qs, ks, vs, scale, causal, st);
+  if (D <= 64) return (int)launch<2>(qf, kf, vf, of, B, Sq, Sk, Hq, Hkv, D, qs, ks, vs, scale, causal, st);
+  if (D <= 128) return (int)launch<4>(qf, kf, vf, of, B, Sq, Sk, Hq, Hkv, D, qs, ks, vs, scale, causal, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,13 +1,16 @@
-"""Flash attention forward: the CUDA kernel and its plain PyTorch twin.
+"""Flash attention forward: two CUDA kernels and their plain PyTorch twin.
 
 ``flash_attention(q, k, v, causal)`` maps q (B, Sq, Hq, D) and k, v
 (B, Sk, Hkv, D), bf16 or f32, to softmax(q k^T / sqrt(D)) v in q's dtype,
 with GQA (q head ``h`` reads kv head ``h // (Hq // Hkv)``) and an optional
-causal mask: through the hand-written kernel
-(``csrc/flash_attention.cu``) for a CUDA tensor, through the plain version
-(``ref.py``) for a CPU tensor. Forward only, as the Pallas kernel: the
-models train through ``models.layers.chunked_attention``, which autograd
-differentiates.
+causal mask. A CUDA tensor goes through a hand-written kernel chosen by
+dtype: bf16 through the tensor-core kernel (``csrc/flash_attention_mma.cu``,
+``mma.sync`` in bf16 with f32 accumulation), f32 through the SIMT kernel
+(``csrc/flash_attention.cu``, f32 FMAs). Each route counts its own
+launches; neither falls back to the other or to the plain version. A CPU
+tensor goes through the plain version (``ref.py``). Forward only, as the
+Pallas kernel: the models train through
+``models.layers.chunked_attention``, which autograd differentiates.
 """
 
 from __future__ import annotations
@@ -18,18 +21,29 @@ import torch
 from ..build import LaunchCounter, check, library, stream_of
 from .ref import flash_attention_torch
 
-LAUNCHES = LaunchCounter()
+MMA_LAUNCHES = LaunchCounter()   # bf16: the tensor-core kernel
+SIMT_LAUNCHES = LaunchCounter()  # f32: the SIMT kernel
 
-MAX_HEAD_DIM = 128  # four 32-dim register chunks a row
+# the SIMT kernel holds a row in four 32-dim register chunks; the
+# tensor-core kernel pads D to a multiple of 16, up to 128
+MAX_HEAD_DIM = 128
+
+
+def _vec16(t: torch.Tensor) -> bool:
+    """Base pointer and batch, sequence and head strides all multiples of 8
+    elements: whole 8-column pieces of a bf16 row are 16-byte aligned."""
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True) -> torch.Tensor:
-    """The hand-written Hopper kernel. q (B, Sq, Hq, D), k and v
-    (B, Sk, Hkv, D), all bf16 or all f32 on one CUDA device, each with unit
-    stride along D (any batch, sequence and head strides: the projections'
-    views are taken as they lie); D <= 128, Hq % Hkv == 0. Returns a
-    contiguous (B, Sq, Hq, D) tensor of q's dtype."""
+    """The hand-written Hopper kernels: bf16 through the tensor-core kernel,
+    f32 through the SIMT kernel. q (B, Sq, Hq, D), k and v (B, Sk, Hkv, D),
+    all bf16 or all f32 on one CUDA device, each with unit stride along D
+    (any batch, sequence and head strides: the projections' views are taken
+    as they lie; bf16 views that are not 16-byte aligned load element by
+    element); D <= 128, Hq % Hkv == 0. Returns a contiguous (B, Sq, Hq, D)
+    tensor of q's dtype."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_attention_cuda needs CUDA tensors")
     if not (q.device == k.device == v.device):
@@ -60,14 +74,19 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
     if B and Sq:
         lib = library()
-        with torch.cuda.device(q.device):
-            err = lib.flash_attention_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 B, Sq, Sk, Hq, Hkv, D, *q.stride()[:3], *k.stride()[:3],
-                *v.stride()[:3], float(np.float32(1.0 / np.sqrt(D))),
-                int(q.dtype == torch.bfloat16), int(causal), stream_of(q))
-            check(err, "flash_attention_launch")
-            LAUNCHES.add()
+                *v.stride()[:3], float(np.float32(1.0 / np.sqrt(D))), int(causal))
+        with torch.cuda.device(q.device):
+            if q.dtype == torch.bfloat16:
+                err = lib.flash_attention_mma_launch(
+                    *args, int(_vec16(q)), int(_vec16(k) and _vec16(v)), stream_of(q))
+                check(err, "flash_attention_mma_launch")
+                MMA_LAUNCHES.add()
+            else:
+                err = lib.flash_attention_f32_launch(*args, stream_of(q))
+                check(err, "flash_attention_f32_launch")
+                SIMT_LAUNCHES.add()
     return o
 
 

@@ -235,27 +235,97 @@ def test_serving_forward_launches_each_kernel_per_batch(cuda):
     torch.testing.assert_close(probs, plain, rtol=0, atol=1e-2)
 
 
-FLASH_SHAPES = [(2, 128, 4, 2, 64, True), (1, 256, 8, 8, 32, False),
-                (2, 128, 2, 1, 100, True), (1, 192, 4, 4, 64, True),
-                (2, 200, 2, 2, 32, False), (3, 70, 2, 2, 128, True),
-                (512, 200, 2, 2, 32, False), (1, 1, 1, 1, 1, True)]
+# (B, Sq, Sk, Hq, Hkv, D, causal): the reference's test shapes, bert4rec's
+# serve shapes, and cases for the tensor-core tiling: S not a multiple of
+# 16 (1, 17, 200, 257), D of 16 to 128 (100 pads to 112), 4 q heads on one
+# kv head, causal with ragged S, Sq != Sk, and keys longer than one staged
+# chunk of shared memory (D 32: 576 keys a chunk, D 64: 256, D 128: 128)
+FLASH_SHAPES = [(2, 128, 128, 4, 2, 64, True), (1, 256, 256, 8, 8, 32, False),
+                (2, 128, 128, 2, 1, 100, True), (1, 192, 192, 4, 4, 64, True),
+                (2, 200, 200, 2, 2, 32, False), (3, 70, 70, 2, 2, 128, True),
+                (512, 200, 200, 2, 2, 32, False), (1, 1, 1, 1, 1, 1, True),
+                (3, 17, 17, 4, 1, 16, True), (2, 257, 257, 4, 1, 64, False),
+                (4, 1, 200, 2, 2, 32, False), (2, 200, 17, 2, 1, 128, False),
+                (2, 257, 130, 2, 2, 100, True), (1, 17, 257, 4, 1, 128, True),
+                (2, 200, 200, 4, 1, 32, True), (1, 300, 700, 4, 2, 64, False),
+                (2, 600, 600, 2, 1, 128, True), (1, 64, 1500, 2, 2, 32, False)]
 
 
-@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal", FLASH_SHAPES)
+def _flash_inputs(B, Sq, Sk, Hq, Hkv, D, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=(B, s, h, D)).astype(np.float32))
+            .to(device).to(dtype) for s, h in ((Sq, Hq), (Sk, Hkv), (Sk, Hkv))]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal", FLASH_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_kernel_matches_plain(cuda, B, S, Hq, Hkv, D, causal, dtype):
+def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, Hq, Hkv, D, causal, dtype):
     from repro_torch.kernels.flash_attention import ops, ref
 
-    rng = np.random.default_rng(B + S + D)
-    q, k, v = (torch.from_numpy(rng.normal(size=(B, S, h, D)).astype(np.float32))
-               .to(cuda).to(dtype) for h in (Hq, Hkv, Hkv))
-    before = ops.LAUNCHES.count
+    q, k, v = _flash_inputs(B, Sq, Sk, Hq, Hkv, D, dtype, cuda, seed=B + Sq + Sk + D)
+    route = ops.MMA_LAUNCHES if dtype == torch.bfloat16 else ops.SIMT_LAUNCHES
+    before = route.count
     got = ops.flash_attention(q, k, v, causal=causal)
-    assert ops.LAUNCHES.count == before + 1
+    assert route.count == before + 1
     assert got.dtype == dtype and got.shape == q.shape and got.is_contiguous()
     tol = 2e-3 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(got, ref.flash_attention_torch(q, k, v, causal=causal),
                                rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_routes_by_dtype(cuda, dtype):
+    """A bf16 call adds one launch to the tensor-core route and none to the
+    f32 route; an f32 call the reverse."""
+    from repro_torch.kernels.flash_attention import ops
+
+    q, k, v = _flash_inputs(2, 40, 40, 2, 1, 32, dtype, cuda, seed=5)
+    mma, simt = ops.MMA_LAUNCHES.count, ops.SIMT_LAUNCHES.count
+    ops.flash_attention(q, k, v, causal=True)
+    bf = dtype == torch.bfloat16
+    assert (ops.MMA_LAUNCHES.count - mma, ops.SIMT_LAUNCHES.count - simt) == (
+        (1, 0) if bf else (0, 1))
+
+
+@pytest.mark.parametrize("what", ["stride", "pointer"])
+def test_flash_attention_misaligned_bf16_views(cuda, what):
+    """bf16 views whose strides or base pointer are not multiples of 8
+    elements: the tensor-core kernel loads them element by element and
+    computes them as the plain version does (or would refuse them with a
+    ValueError; it takes them)."""
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    if what == "stride":  # a row of 33 with the first column cut: stride 33
+        q, k, v = (torch.randn((2, 200, 2, 33), generator=gen, device=cuda)
+                   .to(torch.bfloat16)[..., 1:] for _ in range(3))
+    else:  # whole rows, the base pointer one element past 16-byte alignment
+        q, k, v = (torch.randn(2 * 200 * 2 * 32 + 1, generator=gen, device=cuda)
+                   .to(torch.bfloat16)[1:].view(2, 200, 2, 32) for _ in range(3))
+    assert not ops._vec16(q)
+    before = ops.MMA_LAUNCHES.count
+    try:
+        got = ops.flash_attention(q, k, v, causal=False)
+    except ValueError:
+        return
+    assert ops.MMA_LAUNCHES.count == before + 1
+    torch.testing.assert_close(got, ref.flash_attention_torch(q, k, v, causal=False),
+                               rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_wide_range_v(cuda, causal):
+    """v values far apart in scale (1e5 and 1e-20 among unit normals): the
+    tensor-core kernel's bf16 products of p (split into its top half and
+    remainder) with v equal the plain version's f32 attention."""
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    q, k, v = _flash_inputs(4, 200, 200, 2, 1, 32, torch.bfloat16, cuda, seed=9)
+    v[0, 7, 0, 3] = 1e5
+    v[2, 100, 0, 0] = 1e-20
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.testing.assert_close(got, ref.flash_attention_torch(q, k, v, causal=causal),
+                               rtol=3e-2, atol=3e-2)
 
 
 def test_flash_attention_takes_strided_views(cuda):
@@ -266,7 +336,9 @@ def test_flash_attention_takes_strided_views(cuda):
     qkv = torch.randn((4, 200, 3, 2, 32), device=cuda).to(torch.bfloat16)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     assert not q.is_contiguous()
+    before = ops.MMA_LAUNCHES.count
     got = ops.flash_attention(q, k, v, causal=False)
+    assert ops.MMA_LAUNCHES.count == before + 1
     want = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                causal=False)
     assert torch.equal(got, want)
@@ -281,7 +353,9 @@ def test_flash_attention_past_2_31_elements(cuda):
     B = 170_000
     q, k, v = (torch.empty((B, 200, 2, 32), dtype=torch.bfloat16, device=cuda)
                .normal_() for _ in range(3))
+    before = ops.MMA_LAUNCHES.count
     got = ops.flash_attention(q, k, v, causal=False)[-64:]
+    assert ops.MMA_LAUNCHES.count == before + 1
     want = ref.flash_attention_torch(q[-64:], k[-64:], v[-64:], causal=False)
     torch.testing.assert_close(got, want, rtol=3e-2, atol=3e-2)
 
@@ -340,7 +414,7 @@ def test_adaptive_quant_past_2_31_elements(cuda):
 
 def test_bert4rec_serving_launches_flash_twice_per_forward(cuda):
     """The bert4rec serve cell on the card: one ``flash_attention`` launch
-    per block per forward slice, and the scores through the plain version
+    per block per forward slice, all on the tensor-core route (bf16), and the scores through the plain version
     within 2e-2: the model is bf16, and attention outputs one bf16 step
     apart move a score by far less than a wrong mask or head would."""
     from repro_torch.configs import get_cell
@@ -352,14 +426,16 @@ def test_bert4rec_serving_launches_flash_twice_per_forward(cuda):
     p99 = get_cell("bert4rec", "serve_p99", reduced=True, device=cuda)
     bulk = get_cell("bert4rec", "serve_bulk", reduced=True, device=cuda)
     params = p99.make_state().params
-    fa.LAUNCHES.reset()
+    fa.MMA_LAUNCHES.reset()
+    fa.SIMT_LAUNCHES.reset()
     for i in range(3):
         scores = p99.step_fn(params, batch_to_device(batch_for_cell(p99, i), cuda))
-    assert fa.LAUNCHES.count == 3 * 2
+    assert fa.MMA_LAUNCHES.count == 3 * 2
     b = batch_to_device(batch_for_cell(bulk, 0), cuda)
     bulk.step_fn(params, b)
     slices = -(-b["items"].shape[0] // bulk.cfg.serve_slice_rows)
-    assert slices > 1 and fa.LAUNCHES.count == 3 * 2 + 2 * slices
+    assert slices > 1 and fa.MMA_LAUNCHES.count == 3 * 2 + 2 * slices
+    assert fa.SIMT_LAUNCHES.count == 0
     plain = bert4rec.serve(params, batch_to_device(batch_for_cell(p99, 2), cuda),
                            p99.cfg, attention=fa.flash_attention_torch)
     assert scores.shape == (16, 100) and torch.isfinite(scores).all()
