@@ -26,7 +26,8 @@ Phases:
      ``CheckpointSubscriber`` following the store into an
      ``EmbeddingServer``, bit-equal to ``restore()``, then catching up on
      one more training save by its delta alone. Its path runs
-     ``embedding_bag`` and ``dot_interaction``.
+     ``embedding_bag`` (one launch a batch for all 26 fields) and
+     ``dot_interaction``.
 
   5. bert4rec at full width (1,000,448 items, dim 64, 2 blocks of 2 heads
      of 32, seq 200, d_ff 256, bf16 compute): the Trainer at batch 65,536
@@ -298,10 +299,14 @@ def phase_kernels():
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     checks = []
-    for rows, dim in ((65536, 64), (1000, 10), (333, 200)):
+    # dims 64 and 128 are whole multiples of 32 (codes packed in registers
+    # at 2, 4 and 8 bits, and 2 and 4); 10, 16, 96 and 200 leave lanes
+    # part-filled (shared memory)
+    for rows, dim in ((65536, 64), (1000, 10), (333, 200), (500, 16), (300, 96),
+                      (257, 128)):
         x = _rows(gen, rows, dim, dev)
-        for bits, method in ((2, "adaptive"), (3, "adaptive"), (4, "adaptive"),
-                             (8, "uniform_asym")):
+        for bits, method in ([(b, "adaptive") for b in (2, 3, 4)]
+                             + [(b, "uniform_asym") for b in range(1, 9)]):
             checks.append(check_quant_pack(x, bits, method))
     log("quant_pack checks: " + json.dumps(checks))
 
@@ -336,16 +341,17 @@ def phase_kernels():
     n_el = x.numel()
     # bytes: x read once, words + scale + zero written once. Instructions
     # per value (the per-row work is left out): min, max; for each of the
-    # 2*n_steps+1 candidate ranges of the search: sub, mul, max, min, rint,
-    # sub, mul, add; the final code: max, min, sub, divide, rint, max, min,
-    # float to uint8. An IEEE divide is one reciprocal, five f32 fma-pipe
+    # 2*n_steps+1 candidate ranges of the search: sub, mul, max, min, the
+    # rounding's two adds (r + 1.5*2^23 - 1.5*2^23), sub, mul, add; the
+    # final code: max, min, sub, divide, the rounding's two adds, max, min,
+    # float to uint. An IEEE divide is one reciprocal, five f32 fma-pipe
     # instructions and one range check.
     div = {"xu": 1, "fma": 5, "alu": 1}
 
     def qp_instrs(n_cand):
         per = {"alu": 2 + 2 * n_cand + 4 + div["alu"],
-               "fma": 5 * n_cand + 1 + div["fma"],
-               "xu": n_cand + 2 + div["xu"]}
+               "fma": 7 * n_cand + 3 + div["fma"],
+               "xu": 1 + div["xu"]}
         return {c: n_el * n for c, n in per.items()}
 
     qp_bytes = n_el * 4 + pq.words.numel() * 4 + 2 * 65536 * 4
@@ -365,8 +371,9 @@ def phase_kernels():
     ch_bound, ch_by = bound(n_words * 4 + 4, {"alu": n_words * 7})
     log(f"quant_pack (65536, 64) 4-bit adaptive: kernel {qp_ms:.4f} ms "
         f"(profiler; one call between events {qp_call_ms:.4f} ms), plain "
-        f"{qp_plain_ms:.4f} ms, bound {qp_bound:.4f} ms ({qp_by}); 8-bit "
-        f"uniform_asym kernel {q8_ms:.4f} ms, bound {q8_bound:.4f} ms ({q8_by})")
+        f"{qp_plain_ms:.4f} ms, bound {qp_bound:.4f} ms ({qp_by}, "
+        f"{qp_bound / qp_ms:.1%} of it); 8-bit uniform_asym kernel {q8_ms:.4f} "
+        f"ms, bound {q8_bound:.4f} ms ({q8_by}, {q8_bound / q8_ms:.1%})")
     log(f"chunk_hash {n_words} words: kernel {ch_ms:.4f} ms (profiler; one "
         f"call between events {ch_call_ms:.4f} ms), plain "
         f"{ch_plain_ms:.4f} ms, bound {ch_bound:.4f} ms ({ch_by})")
@@ -404,11 +411,21 @@ def _rotating(fn, args_list):
     return lambda: fn(*nxt())
 
 
+def _bf16_ulps(got, want):
+    """|got - want| in units of want's bf16 ulp (2^(e-8) for want = m 2^e,
+    m in [0.5, 1))."""
+    import torch
+
+    _, e = torch.frexp(want.float())
+    return (got.float() - want.float()).abs() / torch.ldexp(torch.ones_like(want.float()), e - 8)
+
+
 def check_and_time_serve_kernels(gen, dev):
     """``embedding_bag`` and ``dot_interaction`` against their plain
     versions on the card, then timed at the serving shapes: batch 512
-    (serve_p99) and 262,144 (serve_bulk), tables of 2^20 x 64 f32 (the
-    capped vocabulary), H = 1; features (B, 27, 64) bf16."""
+    (serve_p99) and 262,144 (serve_bulk); for the lookup 26 tables of 2^20
+    x 64 f32 (the capped vocabulary), H = 1, all fields in one launch into
+    bf16; features (B, 27, 64) bf16."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -416,15 +433,17 @@ def check_and_time_serve_kernels(gen, dev):
     from repro_torch.kernels.dot_interaction import ops as di
     from repro_torch.kernels.embedding_bag import ops as eb
 
-    V, D = VOCAB_CAP, 64
-    table = torch.randn((V, D), generator=gen, device=dev)
+    V, D, NF = VOCAB_CAP, 64, 26
+    tables = [torch.randn((V, D), generator=gen, device=dev) for _ in range(NF)]
+    table = tables[0]
     eb_checks = []
 
     def check_eb(tab, ids, exact):
+        """The kernel with one table (f32 out) against the plain version."""
         k = eb.embedding_bag_cuda(tab, ids)
         p = eb.embedding_bag_torch(tab, ids)
         err = float((k - p).abs().max()) if k.numel() else 0.0
-        out = dict(shape=[tab.shape[0], tab.shape[1], ids.shape[0], ids.shape[1]],
+        out = dict(fields=1, shape=[tab.shape[0], tab.shape[1], ids.shape[0], ids.shape[1]],
                    bit_equal=bool(torch.equal(k, p)), max_abs_err=err)
         eb_checks.append(out)
         if exact:
@@ -432,19 +451,66 @@ def check_and_time_serve_kernels(gen, dev):
         else:
             check(torch.allclose(k, p, rtol=1e-5, atol=1e-5), f"embedding_bag {out}")
 
+    def check_fields(tabs, ids, bad=()):
+        """All fields in one launch (bf16 out) against the plain version:
+        bit-equal at H = 1, within one bf16 ulp at H > 1. The (b, f) bags
+        in ``bad`` hold an out-of-range id and must come out NaN; the plain
+        version, which cannot take such an id, gets 0 there."""
+        k = eb.embedding_bag_fields_cuda(tabs, ids)
+        good = ids.clone()
+        for b, f in bad:
+            good[b, f, :] = 0
+        p = eb.embedding_bag_fields_torch(tabs, good)
+        nan = torch.isnan(k).all(dim=-1)
+        keep = ~nan
+        out = dict(fields=len(tabs), ids=list(ids.shape), dim=tabs[0].shape[1],
+                   vocabs=sorted({t.shape[0] for t in tabs})[:4],
+                   bit_equal=bool(torch.equal(k[keep], p[keep])),
+                   max_bf16_ulps=float(_bf16_ulps(k[keep], p[keep]).max()),
+                   max_abs_err=float((k[keep].float() - p[keep].float()).abs().max()),
+                   nan_bags=int(nan.sum()))
+        eb_checks.append(out)
+        check(out["nan_bags"] == len(bad) and all(bool(nan[b, f]) for b, f in bad),
+              f"embedding_bag fields {out}: NaN bags")
+        if ids.shape[2] == 1:
+            check(out["bit_equal"], f"embedding_bag fields {out}: not bit-equal")
+        else:
+            check(out["max_bf16_ulps"] <= 1.0, f"embedding_bag fields {out}")
+
+    def rand_ids(B, vocabs, H):
+        return torch.stack([torch.randint(0, v, (B, H), generator=gen, device=dev)
+                            for v in vocabs], dim=1).to(torch.int32)
+
     for B in (512, 262144):
         check_eb(table, torch.randint(0, V, (B, 1), generator=gen, device=dev,
                                       dtype=torch.int32), exact=True)
+        check_fields(tables, rand_ids(B, [V] * NF, 1))
     for v, d, b, h in ((1000, 64, 32, 4), (512, 10, 16, 1), (2048, 200, 8, 7),
                        (100, 128, 64, 2)):
         check_eb(torch.randn((v, d), generator=gen, device=dev),
                  torch.randint(0, v, (b, h), generator=gen, device=dev,
                                dtype=torch.int32), exact=False)
+    # F of 1 to 64, H > 1, D not a multiple of 4, unequal vocabularies
+    for b, h, d, vocabs in ((300, 1, 64, [70]), (64, 3, 16, [20 + 7 * f for f in range(40)]),
+                            (33, 4, 10, [5, 900, 31, 2, 64]), (17, 7, 200, [300, 11, 4096]),
+                            (128, 2, 64, [4096 + f for f in range(26)]), (5, 1, 4, [9] * 64)):
+        check_fields([torch.randn((v, d), generator=gen, device=dev) for v in vocabs],
+                     rand_ids(b, vocabs, h))
+    # an id past its own table's rows (though inside another's), and a -1
+    vocabs = [50, 500, 7, 64, 300, 9]
+    ids = rand_ids(40, vocabs, 3)
+    ids[7, 2, 1] = 7
+    ids[11, 0, 0] = -1
+    check_fields([torch.randn((v, 32), generator=gen, device=dev) for v in vocabs], ids,
+                 bad=((7, 2), (11, 0)))
     big = torch.randn((BIG_ROWS, D), generator=gen, device=dev)
     big_ids = torch.randint(BIG_ROWS - 65536, BIG_ROWS, (4096, 1), generator=gen,
                             device=dev, dtype=torch.int32)
     big_ids[-1, 0] = BIG_ROWS - 1
     check_eb(big, big_ids, exact=True)
+    check_fields([table, big, table],
+                 torch.stack([big_ids[:, 0] % V, big_ids[:, 0], big_ids[:, 0] % 1000],
+                             dim=1)[:, :, None])
     del big, big_ids
     torch.cuda.empty_cache()
     log("embedding_bag checks: " + json.dumps(eb_checks))
@@ -462,22 +528,33 @@ def check_and_time_serve_kernels(gen, dev):
         check(torch.allclose(k, p, rtol=1e-4, atol=1e-4), f"dot_interaction {out}")
     log("dot_interaction checks: " + json.dumps(di_checks))
 
-    # times at the serving shapes; each timed call reads fresh ids/features
+    # times at the serving shapes; each timed call reads fresh ids/features.
+    # The library call for the lookup: one F.embedding_bag over the 26
+    # tables concatenated (once, here), the ids shifted by each table's
+    # first row (f32 out: it has no bf16 output for f32 tables)
+    cat = torch.cat(tables)
+    first_row = torch.arange(NF, device=dev, dtype=torch.int64)[None, :, None] * V
+
     def eb_times(B):
-        # rows read per call: 128 MB for 512 sets of 512 ids, 67 MB per
-        # set of 262,144
-        sets = [(table, torch.randint(0, V, (B, 1), generator=gen, device=dev,
-                                      dtype=torch.int32))
-                for _ in range(512 if B == 512 else 2)]
-        lib_sets = [(i.long(), t) for t, i in sets]
-        # bytes: each id's row read, the ids, each bag written; H = 1: no adds
-        b_ms, b_by = bound(B * D * 4 + B * 4 + B * D * 4, {"fma": 0})
+        # rows read per call: 1.7 GB over 512 sets of 512 x 26 ids, 1.7 GB
+        # per set of 262,144 x 26
+        sets = [(tables, rand_ids(B, [V] * NF, 1)) for _ in range(512 if B == 512 else 2)]
+        lib_sets = [((i.long() + first_row).view(-1, 1), cat) for _, i in sets]
+        one_field = [(table, i[:, 0, :]) for _, i in sets]
+        # bytes: each id's row read, the ids, each bag written in bf16;
+        # H = 1: no adds
+        b_ms, b_by = bound(B * NF * (D * 4 + 4 + D * 2), {"fma": 0})
         return dict(
-            ms=kernel_ms(_rotating(eb.embedding_bag_cuda, sets), "embedding_bag_kernel"),
-            call_ms=time_ms(_rotating(eb.embedding_bag_cuda, sets)),
-            plain_ms=time_ms(_rotating(eb.embedding_bag_torch, sets), reps=20),
+            ms=kernel_ms(_rotating(eb.embedding_bag_fields_cuda, sets),
+                         "embedding_bag_kernel"),
+            call_ms=time_ms(_rotating(eb.embedding_bag_fields_cuda, sets)),
+            plain_ms=time_ms(_rotating(eb.embedding_bag_fields_torch, sets), reps=20),
             library_ms=time_ms(_rotating(
                 lambda i, t: F.embedding_bag(i, t, mode="sum"), lib_sets), reps=20),
+            library_device_ms=device_ms(_rotating(
+                lambda i, t: F.embedding_bag(i, t, mode="sum"), lib_sets)),
+            one_field_ms=kernel_ms(_rotating(eb.embedding_bag_cuda, one_field),
+                                   "embedding_bag_kernel"),
             bound_ms=b_ms, bound_by=b_by)
 
     def di_times(B):
@@ -499,33 +576,40 @@ def check_and_time_serve_kernels(gen, dev):
             bound_ms=b_ms, bound_by=b_by)
 
     eb_t = {B: eb_times(B) for B in (512, 262144)}
-    di_t = {B: di_times(B) for B in (512, 262144)}
-    del table
+    del tables, table, cat
     torch.cuda.empty_cache()
-    for name, t in (("embedding_bag", eb_t), ("dot_interaction", di_t)):
-        for B, r in t.items():
-            log(f"{name} batch {B}: kernel {r['ms']:.4f} ms (profiler; one call "
-                f"between events {r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
-                f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
-                f"({r['bound_by']})")
+    di_t = {B: di_times(B) for B in (512, 262144)}
+    for B, r in eb_t.items():
+        log(f"embedding_bag, 26 fields in one launch, batch {B}: kernel {r['ms']:.4f} "
+            f"ms (profiler; {r['bound_ms'] / r['ms']:.1%} of the bound; one call "
+            f"between events {r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+            f"F.embedding_bag over the concatenated tables {r['library_ms']:.4f} ms "
+            f"(device {r['library_device_ms']:.4f} ms), bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}); one field alone {r['one_field_ms']:.4f} ms")
+    for B, r in di_t.items():
+        log(f"dot_interaction batch {B}: kernel {r['ms']:.4f} ms (profiler; one call "
+            f"between events {r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']})")
 
-    def entry(name, src, replaces, t, checks, err):
+    def entry(name, src, replaces, t, checks, err, shape, keys=()):
         bulk, p99 = t[262144], t[512]
+        main = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bound_by") + keys
         return dict(name=name, route="cuda", source=src, replaces=replaces,
-                    launches=None, max_abs_err=err, shape="serve_bulk, batch 262144",
-                    **{k: bulk[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                            "library_ms", "call_ms")},
-                    serve_p99={k: p99[k] for k in ("ms", "call_ms", "plain_ms",
-                                                   "library_ms", "bound_ms", "bound_by")},
+                    launches=None, max_abs_err=err, shape=shape,
+                    **{k: bulk[k] for k in main},
+                    serve_p99={k: p99[k] for k in main},
                     checks=len(checks))
 
     return [
         entry("embedding_bag", "src/repro_torch/kernels/csrc/embedding_bag.cu",
               "src/repro/kernels/embedding_bag/kernel.py:23", eb_t, eb_checks,
-              max(c["max_abs_err"] for c in eb_checks)),
+              max(c["max_abs_err"] for c in eb_checks),
+              "serve_bulk, batch 262144 x 26 fields, one launch",
+              ("library_device_ms", "one_field_ms")),
         entry("dot_interaction", "src/repro_torch/kernels/csrc/dot_interaction.cu",
               "src/repro/kernels/dot_interaction/kernel.py:22", di_t, di_checks,
-              max(c["max_abs_err"] for c in di_checks)),
+              max(c["max_abs_err"] for c in di_checks), "serve_bulk, batch 262144"),
     ]
 
 
@@ -918,11 +1002,12 @@ def phase_serve(kernels, root, trainer, device="cuda", reduced=False,
               "serve_bulk probabilities finite, one per row")
     bulk_s = time.monotonic() - t1
     rows_s = sum(b["dense"].shape[0] for b in bulk_np[1:]) / bulk_s
-    # (c) every batch went through both kernels
+    # (c) every batch went through both kernels, one launch each: the
+    # lookup takes all fields in one
     n = p99_batches + len(traced) + bulk_batches
     launches = {"embedding_bag": eb.LAUNCHES.count, "dot_interaction": di.LAUNCHES.count}
-    check(launches == {"embedding_bag": n_fields * n, "dot_interaction": n},
-          f"serve launches {launches} == {n_fields} x {n} batches and {n}")
+    check(launches == {"embedding_bag": n, "dot_interaction": n},
+          f"serve launches {launches} == one each for {n} batches of {n_fields} fields")
     log(f"serve: restore of step {restored.step} (chain {restored.chain_len}) to "
         f"the first answer {first_s:.2f} s; serve_p99 {p99_batches} batches of "
         f"{batches[0]['dense'].shape[0]}: p50 {p50:.3f} ms, p99 {p99_ms:.3f} ms per "
@@ -933,7 +1018,7 @@ def phase_serve(kernels, root, trainer, device="cuda", reduced=False,
     # (d) the kernel path against the plain versions on the card, one batch
     b = batch_to_device(batches[0], p99.device)
     k = dlrm.serve(params, b, p99.cfg)
-    p = dlrm.serve(params, b, p99.cfg, bag=eb.embedding_bag_torch,
+    p = dlrm.serve(params, b, p99.cfg, bag=eb.embedding_bag_fields_torch,
                    interact=di.dot_interaction_torch)
     serve_err = float((k - p).abs().max())
     # bf16 model: equal embeddings (H = 1) and f32 dots that differ in the

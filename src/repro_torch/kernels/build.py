@@ -106,7 +106,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.quant_pack_launch.restype = i32
     lib.chunk_hash_launch.argtypes = [vp, i64, vp, vp]
     lib.chunk_hash_launch.restype = i32
-    lib.embedding_bag_launch.argtypes = [vp, vp, vp, i64, i32, i32, i32, i64, vp]
+    lib.embedding_bag_launch.argtypes = ([ctypes.POINTER(vp), ctypes.POINTER(i64), i32,
+                                          vp, i64, i64, i64, vp] + [i32] * 4 + [vp])
     lib.embedding_bag_launch.restype = i32
     lib.dot_interaction_launch.argtypes = [vp, vp, i32, i32, i32, i32, vp]
     lib.dot_interaction_launch.restype = i32

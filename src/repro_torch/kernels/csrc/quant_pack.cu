@@ -9,108 +9,251 @@
 // sits at stream bit bits*p (the host pack_bits wire format).
 //
 // Bound: at the checkpoint's shapes ((65536, 64) f32, 4-bit adaptive,
-// n_steps = 9) the search does 2*n_steps+1 passes of eight instructions
-// over every value, one of them a rintf (FRND, on the 16-lane conversion
-// pipe), against one 4-byte read and bits/8 bytes of write per value, so
-// the conversion pipe bounds it, not device memory. The xor-shuffle
-// reductions (five per lane per candidate, 32 lanes per clock per SM) cost
-// about as much again.
+// n_steps = 9) the search does 2*n_steps+1 passes of nine instructions over
+// every value (sub, mul, max, min, two adds for the rounding, sub, mul,
+// add), against one 4-byte read and bits/8 bytes of write per value, so
+// instruction issue bounds it, not device memory.
 //
-// Design: one warp per row with the row held in registers (VPL values per
-// lane), so the search passes never touch memory; min/max and both
-// candidate errors reduce with xor-butterfly shuffles, which leave every lane
-// with identical bits and hence the same greedy decision. A block owns 32
-// rows, so its code range starts on a word boundary; codes are staged in
-// shared memory and each thread then builds whole output words. Codes past
-// the last row are zero, so the tail bits of the final word are zero.
+// Design: a row lies in the registers of a group of L lanes (a power of
+// two), each holding V = 32/L * K values (K = dim/32, rounded up to a power
+// of two), so a candidate's scalar work (its range, the reciprocal of its
+// scale, the greedy decision) is paid once per V values: at dim 64, V = 16
+// and L = 4, so a warp holds 8 rows. The error sum keeps the order of a
+// warp that owns the row: "virtual lane" t of 32 sums the values t + 32k in
+// k order, then a tree adds lanes t and t + 16, t + 8, ..., t + 1 (the
+// order of the parent kernel, and of PyTorch's CUDA row sum where a warp
+// spans the row). Lane j of the group holds the virtual lanes t = j + L*m,
+// so the tree's first levels (offsets 16 .. L) run in registers and the
+// last log2(L) cross lanes as xor-butterfly shuffles inside the group,
+// which leave every lane of the group with identical bits and hence the
+// same decision. A block owns a multiple of 32 rows, so its code range
+// starts on a word boundary. Where dim = 32*K, bits is 1, 2, 4 or 8 and
+// the row's K*bits words split evenly over the group, the lanes OR their
+// codes into the words in registers and a reduce-scatter over the group
+// leaves lane j with words j*W/L .. (j+1)*W/L - 1 of the row, which it
+// stores; otherwise codes are staged in shared memory and each thread then
+// builds whole output words. Codes past the last row are zero, so the tail
+// bits of the final word are zero.
 //
-// Exactness: rintf (round half to even, as jnp.round); a true IEEE divide
-// for the final codes and for the search's 1/scale; and, where the reference
-// divides by a constant (range / levels, range / num_bins), a multiply by the
-// constant's f32 reciprocal, which is what XLA compiles that divide into.
-// The file is built with -fmad=false so no multiply and add are fused where
-// the reference rounds twice.
+// Exactness: round half to even as rint does, by adding and subtracting
+// 1.5 * 2^23 (exact for the clamped values, in [0, 255]); a true IEEE
+// divide for the final codes and a correctly rounded reciprocal
+// (__frcp_rn, bit-equal to 1.f / s) for the search's 1/scale; and, where
+// the reference divides by a constant (range / levels, range / num_bins), a
+// multiply by the constant's f32 reciprocal, which is what XLA compiles
+// that divide into. The file is built with -fmad=false so no multiply and
+// add are fused where the reference rounds twice.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "warp_reduce.cuh"
-
 namespace {
 
 constexpr float kBig = 3.4e38f;
-constexpr int kRowsPerBlock = 32;
 constexpr int kThreads = 256;
+constexpr int kValuesPerLane = 16;
+constexpr float kRoundMagic = 12582912.f;  // 1.5 * 2^23
+
+// rint(r) for 0 <= r <= 2^22, in two fma-pipe adds that are never
+// contracted or reassociated.
+__device__ __forceinline__ float round_even(float r) {
+  return __fsub_rn(__fadd_rn(r, kRoundMagic), kRoundMagic);
+}
+
+// Reductions over the L lanes of a row group (xor offsets below L stay in
+// the group). Each stage combines the same two operands on both lanes of a
+// pair, so every lane of the group ends with the same bits.
+template <int L>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+template <int L>
+__device__ __forceinline__ float group_min(float v) {
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1)
+    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+template <int L>
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// A lane's registers: slot k*M + m holds the row's value 32k + L*m + j
+// (lane j of the group, virtual lane t = L*m + j), M = 32 / L slots a k.
+template <int L, int K>
+struct Layout {
+  static constexpr int M = 32 / L;
+  static constexpr int V = M * K;
+};
 
 // scale^2 * sum over the row of (r - rint(clip(r, 0, levels)))^2 with
 // r = (x - lo) * (1 / scale): the reference's _err_pair for one candidate.
-template <int VPL>
-__device__ __forceinline__ float range_error(const float (&v)[VPL], int dim,
-                                             int lane, float lo, float hi,
+// `valid` marks the slots that hold a value of the row (all if FULL).
+template <int L, int K, bool FULL>
+__device__ __forceinline__ float range_error(const float (&v)[Layout<L, K>::V],
+                                             uint32_t valid, float lo, float hi,
                                              float levels, float inv_levels) {
+  constexpr int M = Layout<L, K>::M;
   const float rng = hi - lo;
   const float s = rng > 0.f ? rng * inv_levels : 1.f;
-  const float inv = 1.f / s;
-  float acc = 0.f;
+  const float inv = __frcp_rn(s);
+  float part[M];
 #pragma unroll
-  for (int k = 0; k < VPL; ++k) {
-    if (lane + 32 * k < dim) {
-      const float r = (v[k] - lo) * inv;
-      const float d = r - rintf(fminf(fmaxf(r, 0.f), levels));
-      acc += d * d;
+  for (int m = 0; m < M; ++m) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int slot = k * M + m;
+      const float r = (v[slot] - lo) * inv;
+      const float d = r - round_even(fminf(fmaxf(r, 0.f), levels));
+      float dd = d * d;
+      if (!FULL && !((valid >> slot) & 1u)) dd = 0.f;
+      part[m] = k == 0 ? dd : part[m] + dd;
     }
   }
-  return (s * s) * warp_sum(acc);
+#pragma unroll
+  for (int off = M / 2; off > 0; off >>= 1) {
+#pragma unroll
+    for (int m = 0; m < off; ++m) part[m] = part[m] + part[m + off];
+  }
+  return (s * s) * group_sum<L>(part[0]);
 }
 
-template <int VPL>
+// One stage per xor offset O of the group, on the first N words of p:
+// lanes with bit O set keep the upper half and send the lower, the others
+// the reverse; what is kept lands in p[0, N/2).
+template <int O, int N, int W>
+__device__ __forceinline__ void reduce_scatter(uint32_t (&p)[W], int j) {
+  if constexpr (O > 0) {
+    const bool upper = (j & O) != 0;
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const uint32_t send = upper ? p[i] : p[i + N / 2];
+      const uint32_t keep = upper ? p[i + N / 2] : p[i];
+      p[i] = keep | __shfl_xor_sync(0xffffffffu, send, O);
+    }
+    reduce_scatter<O / 2, N / 2>(p, j);
+  }
+}
+
+// Whether a row of dim = 32*K packs its codes in registers: each slot's L
+// codes (lanes 0..L-1) lie in one word, and the row's K*bits words split
+// evenly over the L lanes.
+template <int L, int K>
+__host__ __device__ constexpr bool packs_in_registers(int bits) {
+  return (bits == 1 || bits == 2 || bits == 4 || bits == 8) && L * bits <= 32 &&
+         (K * bits) % L == 0;
+}
+
+// The register pack: the row's W = K*BITS words, each lane ORing its codes
+// into all of them, then a reduce-scatter over the group (at offset o the
+// lanes with bit o set keep the upper half of their words and send the
+// lower) leaves lane j with words j*W/L .. (j+1)*W/L - 1, which it stores
+// at row_words. Every lane of the warp runs it (the shuffles); only `live`
+// rows store.
+template <int BITS, int L, int K>
+__device__ __forceinline__ void pack_row(const uint32_t (&q)[Layout<L, K>::V],
+                                         int j, bool live,
+                                         uint32_t* row_words) {
+  constexpr int M = Layout<L, K>::M;
+  constexpr int W = K * BITS;
+  if constexpr (packs_in_registers<L, K>(BITS)) {
+    uint32_t p[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) p[w] = 0;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const int bit = L * m * BITS;  // of the L codes of slot m, lane 0's
+        p[k * BITS + bit / 32] |= q[k * M + m] << (bit % 32 + j * BITS);
+      }
+    }
+    reduce_scatter<L / 2, W>(p, j);
+    constexpr int kMine = W / L;
+    uint32_t* dst = row_words + j * kMine;
+    if (!live) return;
+    if constexpr (kMine % 4 == 0) {
+#pragma unroll
+      for (int i = 0; i < kMine; i += 4)
+        *reinterpret_cast<uint4*>(dst + i) = make_uint4(p[i], p[i + 1], p[i + 2], p[i + 3]);
+    } else if constexpr (kMine % 2 == 0) {
+#pragma unroll
+      for (int i = 0; i < kMine; i += 2)
+        *reinterpret_cast<uint2*>(dst + i) = make_uint2(p[i], p[i + 1]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kMine; ++i) dst[i] = p[i];
+    }
+  }
+}
+
+// L lanes a row, K values a virtual lane; FULL: dim == 32*K (no masking);
+// reg_pack: FULL and packs_in_registers<L, K>(bits).
+template <int L, int K, bool FULL>
 __global__ void __launch_bounds__(kThreads)
 quant_pack_kernel(const float* __restrict__ x, uint32_t* __restrict__ words,
                   float* __restrict__ scale_out, float* __restrict__ zero_out,
                   int rows, int dim, int bits, int num_bins, int n_steps,
-                  long long nwords) {
-  extern __shared__ uint8_t codes[];  // kRowsPerBlock * dim
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+                  long long nwords, bool reg_pack) {
+  constexpr int M = Layout<L, K>::M;
+  constexpr int V = Layout<L, K>::V;
+  constexpr int kGroups = kThreads / L;
+  constexpr int kRowsPerBlock = kGroups > 32 ? kGroups : 32;
+  extern __shared__ uint8_t codes[];  // kRowsPerBlock * dim, unless reg_pack
+  const int g = threadIdx.x / L;
+  const int j = threadIdx.x % L;
+  uint32_t valid = 0;  // slots that hold a value of the row
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+      if (32 * k + L * m + j < dim) valid |= 1u << (k * M + m);
   const long long row0 = (long long)blockIdx.x * kRowsPerBlock;
   const float levels = (float)((1 << bits) - 1);
   const float inv_levels = 1.f / levels;
 
-  for (int r = warp; r < kRowsPerBlock; r += kThreads / 32) {
-    uint8_t* crow = codes + r * dim;
+  for (int r = g; r < kRowsPerBlock; r += kGroups) {
     const long long row = row0 + r;
-    if (row >= rows) {
-      for (int j = lane; j < dim; j += 32) crow[j] = 0;
-      continue;
-    }
-    const float* xr = x + row * dim;
-    float v[VPL];
+    const bool live = row < rows;
+    const float* xr = x + row * dim + j;
+    float v[V];
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const int slot = k * M + m;
+        v[slot] = live && (FULL || ((valid >> slot) & 1u)) ? xr[32 * k + L * m] : 0.f;
+      }
     float mn = kBig, mx = -kBig;
 #pragma unroll
-    for (int k = 0; k < VPL; ++k) {
-      const int j = lane + 32 * k;
-      v[k] = j < dim ? xr[j] : 0.f;
-      if (j < dim) {
-        mn = fminf(mn, v[k]);
-        mx = fmaxf(mx, v[k]);
+    for (int i = 0; i < V; ++i) {
+      if (FULL || ((valid >> i) & 1u)) {
+        mn = fminf(mn, v[i]);
+        mx = fmaxf(mx, v[i]);
       }
     }
-    mn = warp_min(mn);
-    mx = warp_max(mx);
+    mn = group_min<L>(mn);
+    mx = group_max<L>(mx);
 
     float best_lo = mn, best_hi = mx;
     if (n_steps > 0) {
       const float step = (mx - mn) * (1.f / (float)num_bins);
       float cur_lo = mn, cur_hi = mx;
       float best_err =
-          range_error<VPL>(v, dim, lane, mn, mx, levels, inv_levels);
+          range_error<L, K, FULL>(v, valid, mn, mx, levels, inv_levels);
       for (int s = 0; s < n_steps; ++s) {
-        const float err_lo =
-            range_error<VPL>(v, dim, lane, cur_lo + step, cur_hi, levels,
-                             inv_levels);
-        const float err_hi =
-            range_error<VPL>(v, dim, lane, cur_lo, cur_hi - step, levels,
-                             inv_levels);
+        const float err_lo = range_error<L, K, FULL>(
+            v, valid, cur_lo + step, cur_hi, levels, inv_levels);
+        const float err_hi = range_error<L, K, FULL>(
+            v, valid, cur_lo, cur_hi - step, levels, inv_levels);
         const bool take_lo = err_lo <= err_hi;
         const float new_lo = take_lo ? cur_lo + step : cur_lo;
         const float new_hi = take_lo ? cur_hi : cur_hi - step;
@@ -127,27 +270,43 @@ quant_pack_kernel(const float* __restrict__ x, uint32_t* __restrict__ words,
 
     const float rng = best_hi - best_lo;
     const float sc = rng > 0.f ? rng * inv_levels : 1.f;
+    uint32_t q[V];
 #pragma unroll
-    for (int k = 0; k < VPL; ++k) {
-      const int j = lane + 32 * k;
-      if (j < dim) {
-        const float xc = fminf(fmaxf(v[k], best_lo), best_hi);
-        const float q = rintf((xc - best_lo) / sc);
-        crow[j] = (uint8_t)fminf(fmaxf(q, 0.f), levels);
-      }
+    for (int i = 0; i < V; ++i) {
+      const float xc = fminf(fmaxf(v[i], best_lo), best_hi);
+      const float c = round_even(__fdiv_rn(xc - best_lo, sc));
+      q[i] = live ? (uint32_t)fminf(fmaxf(c, 0.f), levels) : 0u;
     }
-    if (lane == 0) {
+    if (reg_pack) {
+      uint32_t* row_words = words + row * (K * bits);
+      switch (bits) {
+        case 1: pack_row<1, L, K>(q, j, live, row_words); break;
+        case 2: pack_row<2, L, K>(q, j, live, row_words); break;
+        case 4: pack_row<4, L, K>(q, j, live, row_words); break;
+        default: pack_row<8, L, K>(q, j, live, row_words); break;
+      }
+    } else {
+      uint8_t* crow = codes + r * dim + j;
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+#pragma unroll
+        for (int m = 0; m < M; ++m)
+          if (FULL || ((valid >> (k * M + m)) & 1u))
+            crow[32 * k + L * m] = (uint8_t)q[k * M + m];
+    }
+    if (live && j == 0) {
       scale_out[row] = sc;
       zero_out[row] = best_lo;
     }
   }
+  if (reg_pack) return;
   __syncthreads();
 
-  // The block's 32*dim codes fill exactly dim*bits words, starting at word
-  // blockIdx.x*dim*bits. Word w holds the codes overlapping bits
-  // [32w, 32w+32) of the block's stream.
+  // The block's kRowsPerBlock*dim codes fill exactly kRowsPerBlock/32 *
+  // dim*bits words, starting at word blockIdx.x times that. Word w holds
+  // the codes overlapping bits [32w, 32w+32) of the block's stream.
   const int n_codes = kRowsPerBlock * dim;
-  const int block_words = dim * bits;
+  const int block_words = kRowsPerBlock / 32 * dim * bits;
   const long long word0 = (long long)blockIdx.x * block_words;
   for (int w = threadIdx.x; w < block_words; w += kThreads) {
     if (word0 + w >= nwords) break;
@@ -163,40 +322,58 @@ quant_pack_kernel(const float* __restrict__ x, uint32_t* __restrict__ words,
   }
 }
 
-template <int VPL>
-cudaError_t launch(const float* x, uint32_t* words, float* scale, float* zero,
-                   int rows, int dim, int bits, int num_bins, int n_steps,
-                   long long nwords, cudaStream_t stream) {
-  const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  const size_t smem = (size_t)kRowsPerBlock * dim;
-  quant_pack_kernel<VPL><<<blocks, kThreads, smem, stream>>>(
-      x, words, scale, zero, rows, dim, bits, num_bins, n_steps, nwords);
+struct Args {
+  const float* x;
+  uint32_t* words;
+  float* scale;
+  float* zero;
+  int rows, dim, bits, num_bins, n_steps;
+  long long nwords;
+  cudaStream_t stream;
+};
+
+template <int L, int K, bool FULL>
+cudaError_t launch(const Args& a) {
+  constexpr int kGroups = kThreads / L;
+  constexpr int kRowsPerBlock = kGroups > 32 ? kGroups : 32;
+  const bool reg_pack = FULL && packs_in_registers<L, K>(a.bits);
+  const int blocks = (a.rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  const size_t smem = reg_pack ? 0 : (size_t)kRowsPerBlock * a.dim;
+  quant_pack_kernel<L, K, FULL><<<blocks, kThreads, smem, a.stream>>>(
+      a.x, a.words, a.scale, a.zero, a.rows, a.dim, a.bits, a.num_bins,
+      a.n_steps, a.nwords, reg_pack);
   return cudaGetLastError();
+}
+
+// K values a virtual lane, and lanes enough for kValuesPerLane values each
+// (at most 32).
+template <int K>
+cudaError_t launch_k(const Args& a) {
+  constexpr int L = 32 * K / kValuesPerLane < 32 ? 32 * K / kValuesPerLane : 32;
+  return a.dim == 32 * K ? launch<L, K, true>(a) : launch<L, K, false>(a);
 }
 
 }  // namespace
 
 // x: rows*dim f32, row-major, on the device; words: nwords =
-// ceil(rows*dim*bits/32) uint32; scale, zero: rows f32 each. dim <= 1024,
-// 1 <= bits <= 8. Returns cudaGetLastError() after the launch.
+// ceil(rows*dim*bits/32) uint32, 16-byte aligned; scale, zero: rows f32
+// each. dim <= 1024, 1 <= bits <= 8. Returns cudaGetLastError() after the
+// launch.
 extern "C" int quant_pack_launch(const void* x, void* words, void* scale,
                                  void* zero, int rows, int dim, int bits,
                                  int num_bins, int n_steps, long long nwords,
                                  void* stream) {
   if (rows <= 0) return (int)cudaGetLastError();
-  const float* xp = (const float*)x;
-  uint32_t* wp = (uint32_t*)words;
-  float* sp = (float*)scale;
-  float* zp = (float*)zero;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int vpl = (dim + 31) / 32;
+  const Args a{(const float*)x, (uint32_t*)words, (float*)scale, (float*)zero,
+               rows, dim, bits, num_bins, n_steps, nwords,
+               (cudaStream_t)stream};
   cudaError_t err;
-  if (vpl <= 1) err = launch<1>(xp, wp, sp, zp, rows, dim, bits, num_bins, n_steps, nwords, st);
-  else if (vpl <= 2) err = launch<2>(xp, wp, sp, zp, rows, dim, bits, num_bins, n_steps, nwords, st);
-  else if (vpl <= 4) err = launch<4>(xp, wp, sp, zp, rows, dim, bits, num_bins, n_steps, nwords, st);
-  else if (vpl <= 8) err = launch<8>(xp, wp, sp, zp, rows, dim, bits, num_bins, n_steps, nwords, st);
-  else if (vpl <= 16) err = launch<16>(xp, wp, sp, zp, rows, dim, bits, num_bins, n_steps, nwords, st);
-  else if (vpl <= 32) err = launch<32>(xp, wp, sp, zp, rows, dim, bits, num_bins, n_steps, nwords, st);
+  if (dim <= 32) err = launch_k<1>(a);
+  else if (dim <= 64) err = launch_k<2>(a);
+  else if (dim <= 128) err = launch_k<4>(a);
+  else if (dim <= 256) err = launch_k<8>(a);
+  else if (dim <= 512) err = launch_k<16>(a);
+  else if (dim <= 1024) err = launch_k<32>(a);
   else err = cudaErrorInvalidValue;
   return (int)err;
 }

@@ -15,7 +15,7 @@ import torch
 
 from ..core.tracker import mark_touched
 from ..kernels.dot_interaction import dot_interaction as dot_interaction_op
-from ..kernels.embedding_bag import embedding_bag
+from ..kernels.embedding_bag import embedding_bag_fields
 from ..train.state import TrackedSpec, TrainState
 from ..tree import tree_map
 from .embedding import (
@@ -100,15 +100,15 @@ def train_loss(params, batch, cfg: DLRMConfig):
     return loss, dict(accuracy=acc, touched=touched)
 
 
-def serve(params, batch, cfg: DLRMConfig, bag=embedding_bag,
+def serve(params, batch, cfg: DLRMConfig, bag=embedding_bag_fields,
           interact=dot_interaction_op) -> torch.Tensor:
     """Online/offline CTR scoring (the serve_p99 / serve_bulk cells): the
     sigmoid of the logits, without gradients. On a card the lookup is one
-    ``embedding_bag`` kernel launch per field and the interaction one
-    ``dot_interaction`` launch; ``bag`` and ``interact`` swap in other
-    versions of the two ops (the plain ones, to hold the kernels against
-    them). The f32 dots are cast to the compute dtype, which is what the
-    reference's einsum in that dtype yields."""
+    ``embedding_bag`` kernel launch for all fields and the interaction one
+    ``dot_interaction`` launch; ``bag`` (a multi-field op) and ``interact``
+    swap in other versions of the two ops (the plain ones, to hold the
+    kernels against them). The f32 dots are cast to the compute dtype,
+    which is what the reference's einsum in that dtype yields."""
     with torch.no_grad():
         emb = lookup_fields(params["tables"], batch["sparse_ids"], bag=bag)
         logits = _logits(params["dense"], batch["dense"], emb, cfg,

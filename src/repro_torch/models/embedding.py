@@ -2,7 +2,7 @@
 
 The lookup is gather + sum-over-bag (dense multi-hot), the hot path the
 paper's models spend their memory bandwidth on: the ``embedding_bag``
-kernel on a card, its plain version on the CPU. Tables live whole on one
+kernel on a card, one launch for all fields, its plain version on the CPU. Tables live whole on one
 device: the reference's row sharding over a mesh waits for the
 multi-device slice.
 """
@@ -14,7 +14,7 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
-from ..kernels.embedding_bag import embedding_bag
+from ..kernels.embedding_bag import embedding_bag_fields
 from ..train.state import TrackedSpec
 from .layers import dense_init
 
@@ -42,15 +42,15 @@ def table_specs(vocab_sizes: Sequence[int], dim: int,
 
 
 def lookup_fields(tables: Dict[str, torch.Tensor], ids: torch.Tensor,
-                  prefix: str = "emb", bag=embedding_bag) -> torch.Tensor:
+                  prefix: str = "emb", bag=embedding_bag_fields) -> torch.Tensor:
     """Multi-field lookup: ids (B, F, H) → (B, F, D) bf16 (bag-sum over H),
-    cast as the reference casts before its cross-device exchange. One
-    ``bag`` call per field, each on its own table; on a card that is the
-    ``embedding_bag`` kernel, which has no backward, so this is the
-    forward of serving (and of ``train_loss`` on the CPU)."""
-    outs = [bag(tables[f"{prefix}_{f}"], ids[:, f, :])
-            for f in range(ids.shape[1])]
-    return torch.stack(outs, dim=1).to(torch.bfloat16)
+    cast as the reference casts before its cross-device exchange. One call
+    of the multi-field op ``bag`` over all fields: by default
+    ``embedding_bag_fields``, on a card one kernel launch, which has no
+    backward, so this is the forward of serving (and of ``train_loss`` on
+    the CPU). Pass ``embedding_bag_fields_torch`` to hold the kernel
+    against the plain version."""
+    return bag([tables[f"{prefix}_{f}"] for f in range(ids.shape[1])], ids)
 
 
 def touched_masks(vocab_sizes: Sequence[int], ids: torch.Tensor,

@@ -46,7 +46,12 @@ def _codes(pq):
                                pq.bits, pq.count)
 
 
-@pytest.mark.parametrize("rows,dim", [(1, 10), (1000, 64), (333, 200), (70, 1024)])
+# dims 64, 128 and 1024 are whole multiples of 32: their codes are packed
+# in registers at 2, 4 and 8 bits (64), 2 and 4 (128) and 1 (1024), through
+# shared memory otherwise; dims 10, 16, 96 and 200 leave lanes part-filled
+# (shared memory)
+@pytest.mark.parametrize("rows,dim", [(1, 10), (1000, 64), (333, 200), (70, 1024),
+                                      (500, 16), (300, 96), (257, 128)])
 @pytest.mark.parametrize("method,bits", [("uniform_asym", b) for b in range(1, 9)]
                          + [("adaptive", b) for b in (2, 3, 4)])
 def test_quant_pack_kernel_matches_plain(cuda, rows, dim, method, bits):
@@ -172,6 +177,118 @@ def test_embedding_bag_takes_a_fields_column_as_it_lies(cuda):
                                    rtol=1e-5, atol=1e-5)
 
 
+def _bf16_ulps(got, want):
+    """|got - want| in units of want's bf16 ulp (2^(e-8) for want = m 2^e,
+    m in [0.5, 1))."""
+    _, e = torch.frexp(want.float())
+    return (got.float() - want.float()).abs() / torch.ldexp(torch.ones_like(want.float()), e - 8)
+
+
+def _fields_inputs(B, F, H, D, vocabs, device, seed):
+    rng = np.random.default_rng(seed)
+    tables = [torch.from_numpy(rng.normal(size=(v, D)).astype(np.float32)).to(device)
+              for v in vocabs]
+    ids = np.stack([rng.integers(0, v, size=(B, H)) for v in vocabs], axis=1)
+    return tables, torch.from_numpy(ids.astype(np.int32)).to(device)
+
+
+# (B, F, H, D, vocabs): dlrm-rm2's serve_p99 shape at a small vocabulary,
+# F of 1 to 40, H > 1, D not a multiple of 4, unequal vocabularies
+FIELDS_SHAPES = [(512, 26, 1, 64, [1000] * 26), (300, 1, 1, 64, [70]),
+                 (64, 40, 3, 16, [20 + 7 * f for f in range(40)]),
+                 (33, 5, 4, 10, [5, 900, 31, 2, 64]), (17, 3, 7, 200, [300, 11, 4096]),
+                 (128, 26, 2, 64, [2 ** 12 + f for f in range(26)]), (5, 64, 1, 4, [9] * 64)]
+
+
+@pytest.mark.parametrize("B,F,H,D,vocabs", FIELDS_SHAPES)
+def test_embedding_bag_fields_kernel_matches_plain(cuda, B, F, H, D, vocabs):
+    """One launch for all fields: bit-equal to the plain version at H = 1
+    (a bag of one row is that row, rounded once to bf16), within one bf16
+    ulp at H > 1 (the plain version may sum in another order, and a last
+    f32 bit may round to the neighbouring bf16 value)."""
+    from repro_torch.kernels.embedding_bag import ops
+
+    tables, ids = _fields_inputs(B, F, H, D, vocabs, cuda, seed=B + F + H + D)
+    before = ops.LAUNCHES.count
+    got = ops.embedding_bag_fields(tables, ids)
+    assert ops.LAUNCHES.count == before + 1
+    want = ops.embedding_bag_fields_torch(tables, ids)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, F, D)
+    if H == 1:
+        assert torch.equal(got, want)
+    else:
+        assert float(_bf16_ulps(got, want).max()) <= 1.0
+
+
+def test_embedding_bag_fields_takes_strided_ids_and_nans_a_bad_id(cuda):
+    """Ids as a strided view ((B, H, F) transposed to (B, F, H)); an id
+    past its own table's rows (though inside another's) makes that bag NaN
+    and leaves every other bag as the plain version has it."""
+    from repro_torch.kernels.embedding_bag import ops
+
+    tables, ids = _fields_inputs(40, 6, 3, 32, [50, 500, 7, 64, 300, 9], cuda, seed=9)
+    ids = ids.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not ids.is_contiguous()
+    want = ops.embedding_bag_fields_torch(tables, ids)
+    assert float(_bf16_ulps(ops.embedding_bag_fields(tables, ids), want).max()) <= 1.0
+    bad = ids.clone()
+    bad[7, 2, 1] = 7  # field 2 has 7 rows
+    bad[11, 0, 0] = -1
+    got = ops.embedding_bag_fields(tables, bad)
+    nan = torch.isnan(got).all(dim=-1)
+    assert nan[7, 2] and nan[11, 0] and int(nan.sum()) == 2
+    keep = ~nan
+    assert float(_bf16_ulps(got[keep], want[keep]).max()) <= 1.0
+
+
+def test_embedding_bag_fields_offsets_past_2_to_the_31(cuda):
+    """One field's table holds more than 2**31 values (8.6 GB): ids in its
+    last rows have element offsets that an int would wrap."""
+    from repro_torch.kernels.embedding_bag import ops
+
+    V, D = 33_554_944, 64
+    big = torch.empty((V, D), dtype=torch.float32, device=cuda)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1)
+    lo = V - 4096
+    big[lo:] = torch.randn((V - lo, D), generator=gen, device=cuda)
+    small = torch.randn((100, D), generator=gen, device=cuda)
+    ids = torch.stack([torch.randint(0, 100, (256,), generator=gen, device=cuda),
+                       torch.randint(lo, V, (256,), generator=gen, device=cuda),
+                       torch.randint(0, 100, (256,), generator=gen, device=cuda)],
+                      dim=1)[:, :, None].to(torch.int32)
+    got = ops.embedding_bag_fields_cuda([small, big, small], ids)
+    assert torch.equal(got, ops.embedding_bag_fields_torch([small, big, small], ids))
+    assert torch.equal(got[:, 1], big[ids[:, 1, 0].long()].to(torch.bfloat16))
+    del big
+    torch.cuda.empty_cache()
+
+
+def test_embedding_bag_fields_wrapper_checks_its_arguments(cuda):
+    from repro_torch.kernels.embedding_bag import ops
+
+    t = torch.zeros((10, 4), device=cuda)
+    ids = torch.zeros((2, 3, 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="tables"):  # F of the ids != tables
+        ops.embedding_bag_fields_cuda([t, t], ids)
+    with pytest.raises(ValueError):  # mixed devices
+        ops.embedding_bag_fields_cuda([t, t.cpu(), t], ids)
+    with pytest.raises(ValueError):  # more fields than the kernel holds
+        ops.embedding_bag_fields_cuda([t] * (ops.MAX_FIELDS + 1),
+                                      torch.zeros((2, ops.MAX_FIELDS + 1, 1),
+                                                  dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):  # tables of different widths
+        ops.embedding_bag_fields_cuda([t, t, torch.zeros((10, 8), device=cuda)], ids)
+    with pytest.raises(TypeError):
+        ops.embedding_bag_fields_cuda([t] * 3, ids.long())
+    before = ops.LAUNCHES.count
+    with pytest.raises(ValueError):  # tables on the card, ids on the CPU
+        ops.embedding_bag_fields([t] * 3, ids.cpu())
+    with pytest.raises(ValueError):
+        ops.embedding_bag(t, ids[:, 0, :].cpu())
+    assert ops.LAUNCHES.count == before
+
+
 @pytest.mark.parametrize("B,F,D", [(64, 27, 64), (128, 40, 10), (32, 8, 16),
                                    (256, 14, 128), (512, 27, 64), (3, 2, 1)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -209,8 +326,8 @@ def test_new_wrappers_check_their_arguments(cuda):
 
 
 def test_serving_forward_launches_each_kernel_per_batch(cuda):
-    """The serve cell on the card: 26 ``embedding_bag`` launches (one per
-    field) and one ``dot_interaction`` launch per batch, and the forward
+    """The serve cell on the card: one ``embedding_bag`` launch (all 26
+    fields) and one ``dot_interaction`` launch per batch, and the forward
     through the plain versions within 1e-2 on a probability: the model is
     bf16, and f32 dots that differ in their last bits may round to
     neighbouring bf16 values before the top MLP."""
@@ -227,9 +344,9 @@ def test_serving_forward_launches_each_kernel_per_batch(cuda):
     di.LAUNCHES.reset()
     for i in range(3):
         probs = bundle.step_fn(params, batch_to_device(batch_for_cell(bundle, i), cuda))
-    assert (eb.LAUNCHES.count, di.LAUNCHES.count) == (3 * 26, 3)
+    assert (eb.LAUNCHES.count, di.LAUNCHES.count) == (3, 3)
     plain = dlrm.serve(params, batch_to_device(batch_for_cell(bundle, 2), cuda),
-                       bundle.cfg, bag=eb.embedding_bag_torch,
+                       bundle.cfg, bag=eb.embedding_bag_fields_torch,
                        interact=di.dot_interaction_torch)
     assert probs.is_cuda and torch.isfinite(probs).all()
     torch.testing.assert_close(probs, plain, rtol=0, atol=1e-2)

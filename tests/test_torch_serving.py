@@ -46,7 +46,7 @@ from repro_torch.core import (CheckNRunManager, CheckpointConfig, InMemoryStore,
 from repro_torch.core import manifest as mf
 from repro_torch.data.cells import batch_for_cell
 from repro_torch.kernels.dot_interaction import dot_interaction_torch
-from repro_torch.kernels.embedding_bag import embedding_bag_torch
+from repro_torch.kernels.embedding_bag import embedding_bag_fields_torch
 from repro_torch.models import dlrm
 from repro_torch.serve import CheckpointSubscriber, EmbeddingServer
 from repro_torch.train.loop import batch_to_device
@@ -119,7 +119,7 @@ def test_plain_ops_give_the_same_forward(cells):
     state = state_from_numpy(np_state, "cpu")
     batch = batch_to_device(batch_for_cell(bundle, 1), "cpu")
     a = dlrm.serve(state.params, batch, bundle.cfg)
-    b = dlrm.serve(state.params, batch, bundle.cfg, bag=embedding_bag_torch,
+    b = dlrm.serve(state.params, batch, bundle.cfg, bag=embedding_bag_fields_torch,
                    interact=dot_interaction_torch)
     np.testing.assert_array_equal(a.numpy(), b.numpy())
 
