@@ -6,7 +6,9 @@
 
 Phases:
   1. device: no CUDA device means exit 1. Builds the hand-written kernels
-     from ``src/repro_torch/kernels/csrc`` (``nvcc``, into ``build/``).
+     from ``src/repro_torch/kernels/csrc`` (``nvcc``, into ``build/``) and
+     reads what was compiled (``cuobjdump -sass``): ``dot_interaction``'s
+     bf16 route issues HMMA, ``adaptive_quant`` divides only out of line.
   2. kernels: each kernel against its plain PyTorch version on the card, at
      the main paths' shapes, and timed beside its plain version and, where
      one PyTorch call computes the same function, that call: the kernel's
@@ -57,6 +59,7 @@ import itertools
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -178,6 +181,53 @@ def bound(nbytes: float, instrs: dict):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def sass_counts(lib_path: str, names, opcodes) -> dict:
+    """{function: {opcode: count}} from ``cuobjdump -sass`` of a built
+    library, for the functions whose (mangled) name holds one of ``names``:
+    what the compiler made of a kernel, read without running it."""
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                             "cuobjdump")
+    out = subprocess.run([shutil.which("cuobjdump") or cuobjdump, "-sass", lib_path],
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump -sass {lib_path}: {out.stderr[-500:]}")
+    funcs, cur = {}, None
+    for line in out.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = m.group(1) if any(n in m.group(1) for n in names) else None
+            if cur:
+                funcs[cur] = dict.fromkeys(opcodes, 0)
+        elif cur and "/*" in line:
+            for op in opcodes:
+                if re.search(r"\b" + re.escape(op) + r"\b", line):
+                    funcs[cur][op] += 1
+    return funcs
+
+
+def check_sass(lib_path: str) -> dict:
+    """The instruction mix the two kernels redesigned for the card rest on:
+    ``dot_interaction``'s bf16 route issues HMMA (its f32 route none); each
+    ``adaptive_quant`` kernel holds at most one FCHK (the check an IEEE
+    divide makes: the one divide, in ``exact_code``, reached by CALL from
+    the window's branch) and fewer MUFU.RCP than the 16 values a lane
+    holds per candidate (one ``__frcp_rn`` per candidate range in its
+    unrolled code, and the divide's)."""
+    counts = sass_counts(lib_path, ("dot_interaction", "adaptive_quant"),
+                         ("HMMA", "MUFU.RCP", "FCHK", "CALL"))
+    mma = {f: c for f, c in counts.items() if "dot_interaction_mma" in f}
+    simt = {f: c for f, c in counts.items()
+            if "dot_interaction" in f and "dot_interaction_mma" not in f}
+    aq = {f: c for f, c in counts.items() if "adaptive_quant_kernel" in f}
+    check(len(mma) == 4 and all(c["HMMA"] > 0 for c in mma.values()),
+          f"dot_interaction's bf16 route issues HMMA: {mma}")
+    check(len(simt) == 1 and all(c["HMMA"] == 0 for c in simt.values()),
+          f"f32 route: {simt}")
+    check(len(aq) == 12 and all(c["FCHK"] <= 1 and c["MUFU.RCP"] < 16 and c["CALL"] > 0
+                                for c in aq.values()),
+          f"adaptive_quant's kernels divide only out of line: {aq}")
+    return dict(dot_interaction_mma=mma, dot_interaction_f32=simt, adaptive_quant=aq)
+
+
 def record_launches(kernels, path: str, counts: dict) -> None:
     """Add one path's launch counts to the kernel table: ``launches`` is a
     kernel's count over the paths, ``launches_by_path`` each path's."""
@@ -225,6 +275,7 @@ def phase_device():
         f"(nvcc time {build.last_build_s})")
     for lg in sorted(build.BUILD_DIR.glob("*.log")):
         log(f"--- {lg.name}\n{lg.read_text().strip()}")
+    log("sass: " + json.dumps(check_sass(build.library()._name)))
     return card
 
 
@@ -516,16 +567,35 @@ def check_and_time_serve_kernels(gen, dev):
     log("embedding_bag checks: " + json.dumps(eb_checks))
 
     di_checks = []
-    for b, f, d, dt in ((512, 27, 64, torch.bfloat16), (262144, 27, 64, torch.bfloat16),
-                        (64, 27, 64, torch.float32), (128, 40, 10, torch.float32),
-                        (32, 8, 16, torch.float32), (256, 14, 128, torch.float32)):
-        x = torch.randn((b, f, d), generator=gen, device=dev).to(dt)
+    # bf16 (the tensor cores): the serve shapes, a batch that is not a
+    # multiple of 4 rows, F = 2, one to four m-tiles (F = 17, 33, 40, 64),
+    # D = 1, 8, 10, 24, 128 (not a multiple of 16, or of 8: element-wise
+    # staging), and features at an address that is not 16-byte aligned
+    shapes = [(b, f, d, torch.bfloat16) for b, f, d in (
+        (512, 27, 64), (262144, 27, 64), (513, 27, 64), (3, 2, 1), (1, 2, 16),
+        (5, 33, 64), (7, 40, 10), (130, 64, 128), (9, 17, 8), (33, 16, 24),
+        (70001, 27, 64))]
+    shapes += [(b, f, d, torch.float32) for b, f, d in (
+        (64, 27, 64), (128, 40, 10), (32, 8, 16), (256, 14, 128), (5, 33, 64), (3, 2, 1))]
+    shapes.append((513, 27, 64, "bf16, at an offset of 2 bytes"))
+    for b, f, d, dt in shapes:
+        if isinstance(dt, str):
+            x = torch.randn((b * f * d + 1,), generator=gen, device=dev).to(
+                torch.bfloat16)[1:].view(b, f, d)
+        else:
+            x = torch.randn((b, f, d), generator=gen, device=dev).to(dt)
         k, p = di.dot_interaction_cuda(x), di.dot_interaction_torch(x)
         out = dict(shape=[b, f, d], dtype=str(dt).split(".")[-1],
                    max_abs_err=float((k - p).abs().max()),
                    max_rel_err=float(((k - p).abs() / p.abs().clamp_min(1e-6)).max()))
         di_checks.append(out)
         check(torch.allclose(k, p, rtol=1e-4, atol=1e-4), f"dot_interaction {out}")
+    for f, d in ((65, 8), (64, 1024)):  # shapes the bf16 route refuses
+        try:
+            di.dot_interaction_cuda(torch.zeros((2, f, d), device=dev, dtype=torch.bfloat16))
+            check(False, f"dot_interaction refuses bf16 F={f}, D={d}")
+        except ValueError:
+            pass
     log("dot_interaction checks: " + json.dumps(di_checks))
 
     # times at the serving shapes; each timed call reads fresh ids/features.
@@ -557,28 +627,37 @@ def check_and_time_serve_kernels(gen, dev):
                                    "embedding_bag_kernel"),
             bound_ms=b_ms, bound_by=b_by)
 
-    def di_times(B):
-        # 113 MB of features in 64 sets of 512 rows, 906 MB per set of 262,144
-        sets = [(torch.randn((B, 27, D), generator=gen, device=dev)
-                 .to(torch.bfloat16),) for _ in range(64 if B == 512 else 2)]
+    def di_times(B, dt=torch.bfloat16):
+        # bf16: 113 MB of features in 64 sets of 512 rows, 906 MB per set of
+        # 262,144 (f32: twice that)
+        sets = [(torch.randn((B, 27, D), generator=gen, device=dev).to(dt),)
+                for _ in range(64 if B == 512 else 2)]
         iu, ju = (torch.from_numpy(a).to(dev) for a in np.triu_indices(27, k=1))
         pairs = 27 * 26 // 2
-        # bytes: the bf16 features read, the f32 dots written; one f32 FMA
-        # per feature element per pair
-        b_ms, b_by = bound(B * 27 * D * 2 + B * pairs * 4, {"fma": B * pairs * D})
+        # bytes: the features read, the f32 dots written; operations: a
+        # multiply and an add per feature element per pair, bf16 on the
+        # tensor cores, f32 as one FMA instruction on the CUDA cores
+        t_bytes = (B * 27 * D * sets[0][0].element_size() + B * pairs * 4) / PEAK_BYTES_S * 1e3
+        if dt == torch.bfloat16:
+            t_ops = 2.0 * B * pairs * D / PEAK_BF16_FLOPS * 1e3
+        else:
+            t_ops = bound(0, {"fma": B * pairs * D})[0]
+        lib = _rotating(lambda x: torch.bmm(x, x.transpose(1, 2))[:, iu, ju], sets)
         return dict(
             ms=kernel_ms(_rotating(di.dot_interaction_cuda, sets),
-                         "dot_interaction_kernel"),
+                         "dot_interaction_mma_kernel" if dt == torch.bfloat16
+                         else "dot_interaction_kernel"),
             call_ms=time_ms(_rotating(di.dot_interaction_cuda, sets)),
             plain_ms=time_ms(_rotating(di.dot_interaction_torch, sets), reps=20),
-            library_ms=time_ms(_rotating(
-                lambda x: torch.bmm(x, x.transpose(1, 2))[:, iu, ju], sets), reps=20),
-            bound_ms=b_ms, bound_by=b_by)
+            library_ms=time_ms(lib, reps=20), library_device_ms=device_ms(lib),
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
 
     eb_t = {B: eb_times(B) for B in (512, 262144)}
     del tables, table, cat
     torch.cuda.empty_cache()
     di_t = {B: di_times(B) for B in (512, 262144)}
+    di_f32 = {B: di_times(B, torch.float32) for B in (512, 262144)}  # on no path
     for B, r in eb_t.items():
         log(f"embedding_bag, 26 fields in one launch, batch {B}: kernel {r['ms']:.4f} "
             f"ms (profiler; {r['bound_ms'] / r['ms']:.1%} of the bound; one call "
@@ -586,20 +665,22 @@ def check_and_time_serve_kernels(gen, dev):
             f"F.embedding_bag over the concatenated tables {r['library_ms']:.4f} ms "
             f"(device {r['library_device_ms']:.4f} ms), bound {r['bound_ms']:.5f} ms "
             f"({r['bound_by']}); one field alone {r['one_field_ms']:.4f} ms")
-    for B, r in di_t.items():
-        log(f"dot_interaction batch {B}: kernel {r['ms']:.4f} ms (profiler; one call "
-            f"between events {r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
-            f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
-            f"({r['bound_by']})")
+    for (B, dt), r in itertools.chain((((B, "bf16"), r) for B, r in di_t.items()),
+                                      (((B, "f32"), r) for B, r in di_f32.items())):
+        log(f"dot_interaction batch {B}, {dt}: kernel {r['ms']:.4f} ms (profiler; "
+            f"{r['bound_ms'] / r['ms']:.1%} of the bound; one call between events "
+            f"{r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, bmm + gather "
+            f"{r['library_ms']:.4f} ms (device {r['library_device_ms']:.4f} ms), bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
 
-    def entry(name, src, replaces, t, checks, err, shape, keys=()):
+    def entry(name, src, replaces, t, checks, err, shape, keys=(), **extra):
         bulk, p99 = t[262144], t[512]
         main = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bound_by") + keys
         return dict(name=name, route="cuda", source=src, replaces=replaces,
                     launches=None, max_abs_err=err, shape=shape,
                     **{k: bulk[k] for k in main},
                     serve_p99={k: p99[k] for k in main},
-                    checks=len(checks))
+                    checks=len(checks), **extra)
 
     return [
         entry("embedding_bag", "src/repro_torch/kernels/csrc/embedding_bag.cu",
@@ -609,7 +690,10 @@ def check_and_time_serve_kernels(gen, dev):
               ("library_device_ms", "one_field_ms")),
         entry("dot_interaction", "src/repro_torch/kernels/csrc/dot_interaction.cu",
               "src/repro/kernels/dot_interaction/kernel.py:22", di_t, di_checks,
-              max(c["max_abs_err"] for c in di_checks), "serve_bulk, batch 262144"),
+              max(c["max_abs_err"] for c in di_checks),
+              "serve_bulk, (262144, 27, 64) bf16, tensor cores", ("library_device_ms",),
+              f32_route=dict(launches_on_paths=0, **{
+                  f"batch_{B}": r for B, r in di_f32.items()})),
     ]
 
 
@@ -738,24 +822,35 @@ def check_and_time_adaptive_quant(gen, dev):
     (``core.quantize.adaptive_quantize``) on the card, num_bins 25 and
     ratio 0.5 (the reference's test settings), at the reference's test
     shapes and at bert4rec's item table, 1,000,448 x 64, at 2, 3, 4 and 8
-    bits; timed at the table."""
+    bits, and on rows at rounding ties (``ties.tie_rows``: quotients on
+    half-integers and one ulp either side, where the kernel's window sends
+    values to the divide); timed at the table."""
     import torch
 
     from repro_torch.core.quantize import adaptive_quantize, dequantize
     from repro_torch.kernels.adaptive_quant import ops as aq
+    from repro_torch.kernels.adaptive_quant.ties import tie_rows, tie_share
 
     checks = []
-    for rows, dim in ((256, 64), (512, 10), (256, 128), (512, 200), (B4R_ITEMS, 64)):
+    for rows, dim in ((256, 64), (512, 10), (256, 128), (512, 200), (B4R_ITEMS, 64),
+                      (4096, 64), (1024, 200)):
         x = _rows(gen, rows, dim, dev)
         for bits in (2, 3, 4, 8):
-            k = aq.adaptive_quant_cuda(x, bits=bits, num_bins=25, ratio=0.5)
-            p = adaptive_quantize(x, bits, 25, 0.5)
+            ties = rows in (4096, 1024)
+            xin = tie_rows(x, bits) if ties else x
+            k = aq.adaptive_quant_cuda(xin, bits=bits, num_bins=25, ratio=0.5)
+            p = adaptive_quantize(xin, bits, 25, 0.5)
             torch.cuda.synchronize()
-            out = dict(shape=[rows, dim], bits=bits,
+            out = dict(shape=[rows, dim], bits=bits, ties=ties,
                        code_diff_frac=float((k.codes != p.codes).float().mean()),
+                       scale_equal=bool(torch.equal(k.scale, p.scale)),
+                       zero_equal=bool(torch.equal(k.zero, p.zero)),
                        scale_max_abs=float((k.scale - p.scale).abs().max()),
                        zero_max_abs=float((k.zero - p.zero).abs().max()),
                        max_abs_err=float((dequantize(k) - dequantize(p)).abs().max()))
+            if ties:
+                out["tie_share"] = tie_share(xin, bits)
+                check(out["tie_share"] > 0.02, f"adaptive_quant {out}: rows at ties")
             checks.append(out)
             check(torch.allclose(k.scale, p.scale, rtol=1e-5, atol=1e-7)
                   and torch.allclose(k.zero, p.zero, rtol=1e-5, atol=1e-7),
@@ -765,17 +860,25 @@ def check_and_time_adaptive_quant(gen, dev):
 
     x = _rows(gen, B4R_ITEMS, 64, dev)
     n_el, n_steps = x.numel(), int(0.5 * 25)
-    # bytes: x read once, codes + scale + zero written once. Instructions
-    # per value for each of the 2*n_steps+1 candidate ranges: max, min
-    # (clip), sub, IEEE divide, rint, max, min (clamp), mul, add, sub, mul,
-    # add; then min and max of the row, and the final code: max, min, sub,
-    # divide, rint, max, min, float to uint8. An IEEE divide is one
-    # reciprocal, five f32 fma-pipe instructions and one range check.
     n_cand = 2 * n_steps + 1
-    per = {"alu": 2 + n_cand * (4 + 1) + 4 + 1, "fma": n_cand * (6 + 5) + 1 + 5,
-           "xu": n_cand * 2 + 3}
-    b_ms, b_by = bound(n_el * 4 + n_el + 2 * B4R_ITEMS * 4,
-                       {c: n_el * n for c, n in per.items()})
+    # bytes: x read once, codes + scale + zero written once. Instructions
+    # per value, the per-row and per-candidate scalar work left out. This
+    # kernel: for each of the 2*n_steps+1 candidate ranges, max, min (clip),
+    # sub, mul (the quotient by the reciprocal), the rounding's two adds,
+    # sub and a compare (the window test), mul, add (dequantize), sub, mul,
+    # add (the squared error's sum); then min and max of the row, and the
+    # final code: max, min, sub, mul, two adds, sub, compare, float to
+    # uint8. The earlier kernel's mix (its yardstick, kept beside it): for
+    # each candidate max, min, sub, IEEE divide, rint, max, min (clamp), mul,
+    # add, sub, mul, add; then min and max, and the final code: max, min,
+    # sub, divide, rint, max, min, float to uint8; an IEEE divide is one
+    # reciprocal, five f32 fma-pipe instructions and one range check.
+    nbytes = n_el * 4 + n_el + 2 * B4R_ITEMS * 4
+    per = {"alu": n_cand * 3 + 2 + 3, "fma": n_cand * 10 + 5, "xu": 1}
+    per_parent = {"alu": 2 + n_cand * (4 + 1) + 4 + 1, "fma": n_cand * (6 + 5) + 1 + 5,
+                  "xu": n_cand * 2 + 3}
+    b_ms, b_by = bound(nbytes, {c: n_el * n for c, n in per.items()})
+    pb_ms, pb_by = bound(nbytes, {c: n_el * n for c, n in per_parent.items()})
     ms_by_bits = {}
     for bits in (2, 3, 4, 8):
         ms_by_bits[bits] = kernel_ms(lambda: aq.adaptive_quant_cuda(
@@ -789,7 +892,8 @@ def check_and_time_adaptive_quant(gen, dev):
     log(f"adaptive_quant ({B4R_ITEMS}, 64), num_bins 25, ratio 0.5: kernel "
         f"{json.dumps({b: round(t, 4) for b, t in ms_by_bits.items()})} ms by bits "
         f"(profiler); 4-bit call between events {r['call_ms']:.4f} ms, plain "
-        f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {b_ms / r['ms']:.1%} of "
+        f"it; the earlier kernel's mix: {pb_ms:.4f} ms, {pb_by})")
     return dict(name="adaptive_quant", route="cuda",
                 source="src/repro_torch/kernels/csrc/adaptive_quant.cu",
                 replaces="src/repro/kernels/adaptive_quant/kernel.py:61",
@@ -797,6 +901,7 @@ def check_and_time_adaptive_quant(gen, dev):
                 shape=f"({B4R_ITEMS}, 64) f32, 4-bit, num_bins 25, ratio 0.5",
                 library_ms=None, ms_by_bits=ms_by_bits, checks=len(checks),
                 max_code_diff_frac=max(c["code_diff_frac"] for c in checks),
+                bound_ms_earlier_mix=pb_ms, bound_by_earlier_mix=pb_by,
                 **{k: r[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")})
 
 

@@ -4,9 +4,10 @@ PyTorch twin.
 ``dot_interaction(feats)`` maps (B, F, D) features, bf16 or f32, to the
 (B, F(F-1)/2) f32 dots <f_i, f_j> for i < j in ``np.triu_indices`` order,
 accumulated in f32 as the Pallas kernel does: through the hand-written
-kernel (``csrc/dot_interaction.cu``) for a CUDA tensor, through the plain
-version for a CPU tensor. Forward only, as the Pallas kernel: the train
-step keeps ``models.dlrm.dot_interaction``, which autograd differentiates.
+kernel (``csrc/dot_interaction.cu``: bf16 on the tensor cores, f32 on the
+CUDA cores) for a CUDA tensor, through the plain version for a CPU tensor.
+Forward only, as the Pallas kernel: the train step keeps
+``models.dlrm.dot_interaction``, which autograd differentiates.
 """
 
 from __future__ import annotations
@@ -29,10 +30,25 @@ def dot_interaction_torch(feats: torch.Tensor) -> torch.Tensor:
     return z[:, iu, ju]
 
 
+MMA_MAX_F = 64            # the bf16 route's four 16-row m-tiles
+MMA_SMEM = 227 * 1024     # a block's shared memory on the card
+
+
+def mma_warp_bytes(nf: int, dim: int) -> int:
+    """Shared memory one warp of the bf16 route takes: two buffers of 4
+    batch rows of features at a pitch of 2*DP + 16 bytes (DP = dim rounded
+    up to 16), 4 rows of f32 dots, a 16-byte zero chunk
+    (``csrc/dot_interaction.cu``, ``mma_warp_bytes``)."""
+    pitch = 2 * (-(-dim // 16) * 16) + 16
+    return 2 * 4 * nf * pitch + 4 * (nf * (nf - 1) // 2) * 4 + 16
+
+
 def dot_interaction_cuda(feats: torch.Tensor) -> torch.Tensor:
     """The hand-written Hopper kernel. ``feats`` (B, F, D) bf16 or f32,
-    contiguous, on a CUDA device, F >= 2; one batch row's features, as f32,
-    must fit the kernel's 48 KB of shared memory."""
+    contiguous, on a CUDA device, F >= 2. bf16 takes the tensor-core route
+    for F <= 64 where one warp's buffers (:func:`mma_warp_bytes`) fit
+    227 KB; f32 the CUDA cores, where one batch row's features as f32 and
+    the pair table fit 48 KB. Other shapes raise."""
     if not feats.is_cuda:
         raise ValueError("dot_interaction_cuda needs a CUDA tensor")
     if feats.dtype not in (torch.float32, torch.bfloat16):
@@ -43,9 +59,16 @@ def dot_interaction_cuda(feats: torch.Tensor) -> torch.Tensor:
     if nf < 2 or dim < 1:
         raise ValueError(f"need F >= 2 and D >= 1, got F={nf}, D={dim}")
     pairs = nf * (nf - 1) // 2
-    if nf * (dim | 1) * 4 + pairs * 4 > 48 * 1024 or batch >= 2 ** 31:
-        raise ValueError(f"shape {tuple(feats.shape)} outside the kernel's "
-                         f"shared-memory budget or int extents")
+    if feats.dtype == torch.bfloat16:
+        if nf > MMA_MAX_F or mma_warp_bytes(nf, dim) > MMA_SMEM:
+            raise ValueError(f"bf16 shape {tuple(feats.shape)} outside the tensor-core "
+                             f"route: F <= {MMA_MAX_F} and a warp's buffers within "
+                             f"{MMA_SMEM} bytes")
+    elif nf * (dim | 1) * 4 + pairs * 4 > 48 * 1024:
+        raise ValueError(f"f32 shape {tuple(feats.shape)} outside the kernel's "
+                         f"shared-memory budget")
+    if batch >= 2 ** 31:
+        raise ValueError(f"batch {batch} does not fit the kernel's int extents")
     out = torch.empty((batch, pairs), dtype=torch.float32, device=feats.device)
     if batch:
         lib = library()

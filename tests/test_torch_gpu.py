@@ -15,7 +15,8 @@ are summed in another order), as ``tests/test_kernels.py`` holds the
 Pallas kernels. ``flash_attention`` within 2e-3 in f32 (sums in another
 order) and 3e-2 in bf16 (outputs rounded to bf16 may land on neighbouring
 values), the reference's bars for its kernel; the unpacked
-``adaptive_quant`` at the quantizers' bars above.
+``adaptive_quant`` at the quantizers' bars above, and bit-equal at dim 64
+on rows at rounding ties.
 """
 
 import numpy as np
@@ -289,8 +290,13 @@ def test_embedding_bag_fields_wrapper_checks_its_arguments(cuda):
     assert ops.LAUNCHES.count == before
 
 
+# bf16 on the tensor cores: batches that are not a multiple of its 4-row
+# units, F = 2, one to four 16-row m-tiles, D not a multiple of 16 or of 8
+# (element-wise staging)
 @pytest.mark.parametrize("B,F,D", [(64, 27, 64), (128, 40, 10), (32, 8, 16),
-                                   (256, 14, 128), (512, 27, 64), (3, 2, 1)])
+                                   (256, 14, 128), (512, 27, 64), (3, 2, 1),
+                                   (513, 27, 64), (2, 2, 64), (5, 33, 64), (7, 33, 10),
+                                   (130, 64, 128), (9, 17, 8)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dot_interaction_kernel_matches_plain(cuda, B, F, D, dtype):
     from repro_torch.kernels.dot_interaction import ops
@@ -303,6 +309,33 @@ def test_dot_interaction_kernel_matches_plain(cuda, B, F, D, dtype):
     assert got.dtype == torch.float32 and got.shape == (B, F * (F - 1) // 2)
     torch.testing.assert_close(got, ops.dot_interaction_torch(x),
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("B,F,D", [(513, 27, 64), (7, 33, 10), (1, 40, 16)])
+def test_dot_interaction_bf16_reads_unaligned_features(cuda, B, F, D):
+    """Features 2 bytes past a 16-byte boundary: the bf16 route stages
+    them element by element, not by 16-byte copies."""
+    from repro_torch.kernels.dot_interaction import ops
+
+    x = torch.from_numpy(np.random.default_rng(B * F + D).normal(size=(B, F, D))
+                         .astype(np.float32)).to(cuda).to(torch.bfloat16)
+    off = torch.empty(B * F * D + 1, dtype=torch.bfloat16, device=cuda)[1:].view(B, F, D)
+    off.copy_(x)
+    torch.testing.assert_close(ops.dot_interaction_cuda(off), ops.dot_interaction_torch(x),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_dot_interaction_refuses_what_the_tensor_cores_do_not_take(cuda):
+    from repro_torch.kernels.dot_interaction import ops
+
+    before = ops.LAUNCHES.count
+    for F, D in ((65, 8), (64, 1024)):
+        with pytest.raises(ValueError, match="tensor-core route"):
+            ops.dot_interaction_cuda(torch.zeros((2, F, D), dtype=torch.bfloat16, device=cuda))
+    assert ops.LAUNCHES.count == before
+    # the f32 route takes F = 65
+    got = ops.dot_interaction_cuda(torch.ones((2, 65, 8), device=cuda))
+    assert got.shape == (2, 65 * 64 // 2) and bool((got == 8).all())
 
 
 def test_new_wrappers_check_their_arguments(cuda):
@@ -513,6 +546,26 @@ def test_adaptive_quant_kernel_matches_plain(cuda, rows, dim, bits):
     np.testing.assert_allclose(got.zero.cpu().numpy(), want.zero.cpu().numpy(),
                                rtol=1e-5, atol=1e-7)
     assert (got.codes != want.codes).float().mean().item() <= 2e-3
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+def test_adaptive_quant_at_rounding_ties_is_bit_equal(cuda, bits):
+    """Rows whose quotients sit on half-integers and one ulp either side
+    (``ties.tie_rows``), where the kernel's window sends values to the
+    divide: codes, scale and zero equal the plain version's bit for bit at
+    dim 64 (where the kernel's error sums and PyTorch's row sum on the card
+    add in the same order)."""
+    from repro_torch.core.quantize import adaptive_quantize
+    from repro_torch.kernels.adaptive_quant import ops
+    from repro_torch.kernels.adaptive_quant.ties import tie_rows, tie_share
+
+    x = tie_rows(_rows(4096, 64, cuda, seed=bits), bits)
+    assert tie_share(x, bits) > 0.02
+    got = ops.adaptive_quant(x, bits=bits, num_bins=25, ratio=0.5)
+    want = adaptive_quantize(x, bits, 25, 0.5)
+    assert torch.equal(got.scale, want.scale)
+    assert torch.equal(got.zero, want.zero)
+    assert torch.equal(got.codes, want.codes)
 
 
 def test_adaptive_quant_past_2_31_elements(cuda):
