@@ -8,7 +8,9 @@ Phases:
   1. device: no CUDA device means exit 1. Builds the hand-written kernels
      from ``src/repro_torch/kernels/csrc`` (``nvcc``, into ``build/``) and
      reads what was compiled (``cuobjdump -sass``): ``dot_interaction``'s
-     bf16 route issues HMMA, ``adaptive_quant`` divides only out of line.
+     bf16 route issues HMMA, ``adaptive_quant`` divides only out of line,
+     ``chunk_hash`` issues at most one global atomic, the f32 attention no
+     tensor-core instruction.
   2. kernels: each kernel against its plain PyTorch version on the card, at
      the main paths' shapes, and timed beside its plain version and, where
      one PyTorch call computes the same function, that call: the kernel's
@@ -126,26 +128,17 @@ def kernel_ms(fn, name: str, reps: int = 30) -> float:
     """Median device time of the kernels whose name contains ``name``, from
     a ``torch.profiler`` trace of ``reps`` calls of ``fn`` (after warm-up):
     unlike events around a call, it leaves out the host's launch overhead.
-    A trace that does not hold one such kernel per call is taken again (the
-    profiler has been seen to drop one event of 20); raises if the third
-    does not either."""
+    A trace that does not hold one such kernel per call is taken again
+    (``_traced``)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
-        if len(us) == reps:
-            return statistics.median(us) / 1e3
-        log(f"profiler trace held {len(us)} {name} kernels for {reps} calls; again")
-    check(False, f"profiler trace holds {len(us)} {name} kernels for {reps} calls")
+    def matching(prof):
+        return [e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+
+    prof = _traced(fn, reps, lambda p: len(matching(p)) == reps,
+                   lambda p: f"{len(matching(p))} {name} kernels for {reps} calls")
+    return statistics.median(matching(prof)) / 1e3
 
 
 def device_ms(fn, reps: int = 20) -> float:
@@ -154,19 +147,44 @@ def device_ms(fn, reps: int = 20) -> float:
     call's kernel time, whatever its kernels are named, to set beside a
     hand-written kernel's ``kernel_ms``."""
     import torch
+
+    def device_us(prof):
+        return [e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    prof = _traced(fn, reps, lambda p: sum(device_us(p)) > 0, lambda p: "no device time")
+    return sum(device_us(prof)) / reps / 1e3
+
+
+RETAKEN_TRACES = [0]  # traces _traced has taken again so far in this run
+
+
+def _traced(fn, reps, ok, what, attempts=8):
+    """A ``torch.profiler`` trace of ``reps`` calls of ``fn`` (after
+    warm-up) of which ``ok(trace)`` holds; ``what(trace)`` says what a
+    failed one held. A trace that fails ``ok`` is taken again after a
+    pause (the profiler has been seen to drop one event of 20, in one run
+    events of three traces in a row, and once to record no device event
+    at all); raises if the last of ``attempts`` fails too. Each retake is
+    counted in ``RETAKEN_TRACES``, which a kernel's entry in the result
+    line reports as ``retaken_traces``."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    check(us > 0, "the profiler saw device time")
-    return us / reps / 1e3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        if ok(prof):
+            return prof
+        log(f"profiler trace held {what(prof)}; again")
+        RETAKEN_TRACES[0] += 1
+        time.sleep(0.5)
+    check(False, f"profiler trace holds {what(prof)}")
 
 
 def bound(nbytes: float, instrs: dict):
@@ -205,15 +223,19 @@ def sass_counts(lib_path: str, names, opcodes) -> dict:
 
 
 def check_sass(lib_path: str) -> dict:
-    """The instruction mix the two kernels redesigned for the card rest on:
-    ``dot_interaction``'s bf16 route issues HMMA (its f32 route none); each
+    """The instruction mix the kernels redesigned for the card rest on:
+    ``dot_interaction``'s bf16 route issues HMMA (its f32 route none);
+    ``chunk_hash`` at most one global atomic; ``flash_attention``'s f32
+    route no HMMA or HGMMA; each
     ``adaptive_quant`` kernel holds at most one FCHK (the check an IEEE
     divide makes: the one divide, in ``exact_code``, reached by CALL from
     the window's branch) and fewer MUFU.RCP than the 16 values a lane
     holds per candidate (one ``__frcp_rn`` per candidate range in its
     unrolled code, and the divide's)."""
-    counts = sass_counts(lib_path, ("dot_interaction", "adaptive_quant"),
-                         ("HMMA", "MUFU.RCP", "FCHK", "CALL"))
+    counts = sass_counts(lib_path, ("dot_interaction", "adaptive_quant", "chunk_hash",
+                                    "flash_kernel_f32"),
+                         ("HMMA", "HGMMA", "MUFU.RCP", "FCHK", "CALL", "ATOMG", "ATOM",
+                          "REDG", "RED"))
     mma = {f: c for f, c in counts.items() if "dot_interaction_mma" in f}
     simt = {f: c for f, c in counts.items()
             if "dot_interaction" in f and "dot_interaction_mma" not in f}
@@ -225,7 +247,18 @@ def check_sass(lib_path: str) -> dict:
     check(len(aq) == 12 and all(c["FCHK"] <= 1 and c["MUFU.RCP"] < 16 and c["CALL"] > 0
                                 for c in aq.values()),
           f"adaptive_quant's kernels divide only out of line: {aq}")
-    return dict(dot_interaction_mma=mma, dot_interaction_f32=simt, adaptive_quant=aq)
+    # chunk_hash: one global atomic, a block's add to the sum (the earlier
+    # kernel issued one a warp); the f32 attention keeps
+    # full f32 products, on no tensor core
+    ch = {f: c for f, c in counts.items() if "chunk_hash_kernel" in f}
+    check(len(ch) == 1 and all(c["ATOMG"] + c["ATOM"] + c["REDG"] + c["RED"] <= 1
+                               for c in ch.values()),
+          f"chunk_hash issues at most one global atomic: {ch}")
+    f32 = {f: c for f, c in counts.items() if "flash_kernel_f32" in f}
+    check(len(f32) == 4 and all(c["HMMA"] == 0 and c["HGMMA"] == 0 for c in f32.values()),
+          f"the f32 attention issues no tensor-core instruction: {f32}")
+    return dict(dot_interaction_mma=mma, dot_interaction_f32=simt, adaptive_quant=aq,
+                chunk_hash=ch, flash_attention_f32=f32)
 
 
 def record_launches(kernels, path: str, counts: dict) -> None:
@@ -235,6 +268,52 @@ def record_launches(kernels, path: str, counts: dict) -> None:
         if k["name"] in counts:
             k.setdefault("launches_by_path", {})[path] = counts[k["name"]]
             k["launches"] = sum(k["launches_by_path"].values())
+
+
+EMPTY_KERNEL_CU = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_kernel_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def build_empty_kernel():
+    """An empty kernel, built with the kernels' flags into
+    ``build/empty_kernel/``: its profiler time is the floor every launch
+    pays, set beside a kernel whose bound a launch outlasts. Returns a call
+    that launches it on the current stream."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import build as kb
+
+    out = kb.BUILD_DIR / "empty_kernel"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "empty.cu").write_text(EMPTY_KERNEL_CU)
+    p = subprocess.run([kb._nvcc()] + kb.ARCH_FLAGS + kb.COMMON_FLAGS
+                       + ["-shared", str(out / "empty.cu"), "-o", str(out / "empty.so")],
+                       capture_output=True, text=True, timeout=300)
+    check(p.returncode == 0, f"nvcc of the empty kernel: {p.stdout[-500:]}{p.stderr[-500:]}")
+    lib = ctypes.CDLL(str(out / "empty.so"))
+    lib.empty_kernel_launch.argtypes = [ctypes.c_void_p]
+    lib.empty_kernel_launch.restype = ctypes.c_int
+
+    def launch():
+        check(lib.empty_kernel_launch(torch.cuda.current_stream().cuda_stream) == 0,
+              "empty kernel launched")
+    return launch
+
+
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
 
 
 def _device_split(prof, n_batches, groups, top=6):
@@ -263,10 +342,7 @@ def phase_device():
 
     from repro_torch.kernels import build
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
+    card = card_name()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.monotonic()
@@ -376,9 +452,27 @@ def phase_kernels():
         if n > 1:
             check(ch.hash_words_cuda(w, n - 1) == hash_words_np(w[:n - 1].cpu().numpy()),
                   f"chunk_hash count < len at {n}")
+    # views 4, 8 and 12 bytes past a 16-byte boundary, at counts that are
+    # not multiples of 4; then 500 calls on one buffer without a reset
+    base = torch.randint(0, 2**32, (1_048_579 + 3,), dtype=torch.int64, generator=gen,
+                         device=dev).to(torch.uint32)
+    host = base.cpu().numpy()
+    for off in (1, 2, 3):
+        for n in (1, 5, 1023, 524_287, 1_048_579):
+            hk = ch.hash_value(ch.hash_words_async(base[off:off + n], n), n)
+            ho = hash_words_np(host[off:off + n])
+            hash_checks.append(dict(words=n, offset_words=off, kernel=hk, oracle=ho))
+            check(hk == ho, f"chunk_hash at {n} words from offset {off}: {hk} {ho}")
+    counts = [524_288 - 7 * i for i in range(500)]
+    outs = [ch.hash_words_async(base, c) for c in counts]
+    repeated = ([ch.hash_value(h, c) for h, c in zip(outs, counts)]
+                == [hash_words_np(host[:c]) for c in counts])
+    hash_checks.append(dict(repeated_calls=len(counts), all_equal=repeated))
+    check(repeated, "chunk_hash over 500 calls on one stream without a reset")
     log("chunk_hash checks: " + json.dumps(hash_checks))
 
     # times at the main path's shapes: one (65536, 64) chunk, 4-bit adaptive
+    qp_retaken = RETAKEN_TRACES[0]
     x = _rows(gen, 65536, 64, dev)
     nb, ns = aq._resolve_steps("adaptive", 4, None, None)
     qp_call = lambda: aq.quant_pack_cuda(x, bits=4, num_bins=nb, n_steps=ns)
@@ -410,13 +504,19 @@ def phase_kernels():
     q8_bound, q8_by = bound(n_el * 4 + n_el + 2 * 65536 * 4, qp_instrs(0))
     main_cfg = next(c for c in checks if c["shape"] == [65536, 64] and c["bits"] == 4)
 
+    qp_retaken = RETAKEN_TRACES[0] - qp_retaken
+    ch_retaken = RETAKEN_TRACES[0]
     n_words = pq.words.numel()  # 524,288: the 4-bit chunk's word stream
-    acc = torch.zeros(1, dtype=torch.int32, device=dev)
-    ch_call = lambda: ch.launch_sum(pq.words, n_words, acc)
+    # the save path's call: a 4-byte memset and one launch, no PyTorch
+    # fill, the sum left on the card
+    ch_call = lambda: ch.hash_words_cuda_async(pq.words, n_words)
     ch_ms = kernel_ms(ch_call, "chunk_hash_kernel")
+    ch_device_ms = device_ms(ch_call)
     ch_call_ms = time_ms(ch_call)
     ch_plain_ms = time_ms(lambda: ch.hash_words_torch(pq.words, n_words), reps=20)
-    # bytes: the words read once, the 4-byte sum written once. Integer
+    floor_ms = kernel_ms(build_empty_kernel(), "empty_kernel")
+    ch_retaken = RETAKEN_TRACES[0] - ch_retaken
+    # bytes: the words read once, the 4-byte hash written once. Integer
     # instructions per word: w + i*P2 and sum + t*P3 are one multiply-add
     # each; the multiply by P1, two shifts and two xors: 7.
     ch_bound, ch_by = bound(n_words * 4 + 4, {"alu": n_words * 7})
@@ -425,9 +525,10 @@ def phase_kernels():
         f"{qp_plain_ms:.4f} ms, bound {qp_bound:.4f} ms ({qp_by}, "
         f"{qp_bound / qp_ms:.1%} of it); 8-bit uniform_asym kernel {q8_ms:.4f} "
         f"ms, bound {q8_bound:.4f} ms ({q8_by}, {q8_bound / q8_ms:.1%})")
-    log(f"chunk_hash {n_words} words: kernel {ch_ms:.4f} ms (profiler; one "
-        f"call between events {ch_call_ms:.4f} ms), plain "
-        f"{ch_plain_ms:.4f} ms, bound {ch_bound:.4f} ms ({ch_by})")
+    log(f"chunk_hash {n_words} words: kernel {ch_ms:.4f} ms (profiler; all device "
+        f"time of a call {ch_device_ms:.4f} ms; one call between events "
+        f"{ch_call_ms:.4f} ms), plain {ch_plain_ms:.4f} ms, bound {ch_bound:.5f} ms "
+        f"({ch_by}); an empty kernel {floor_ms:.4f} ms (profiler), the launch floor")
     serve_kernels = check_and_time_serve_kernels(gen, dev)
     b4r_kernels = [check_and_time_flash(gen, dev), check_and_time_adaptive_quant(gen, dev)]
     return [
@@ -436,7 +537,7 @@ def phase_kernels():
              replaces="src/repro/kernels/adaptive_quant/kernel.py:206",
              launches=None, max_abs_err=main_cfg["max_abs_err"],
              ms=qp_ms, plain_ms=qp_plain_ms, bound_ms=qp_bound, bound_by=qp_by,
-             library_ms=None, call_ms=qp_call_ms,
+             library_ms=None, call_ms=qp_call_ms, retaken_traces=qp_retaken,
              ms_8bit_uniform=q8_ms, bound_ms_8bit_uniform=q8_bound,
              bound_by_8bit_uniform=q8_by,
              mismatch=dict(checks=len(checks),
@@ -449,7 +550,8 @@ def phase_kernels():
              replaces="src/repro/kernels/chunk_hash/kernel.py:58",
              launches=None, max_abs_err=0.0,
              ms=ch_ms, plain_ms=ch_plain_ms, bound_ms=ch_bound, bound_by=ch_by,
-             library_ms=None, call_ms=ch_call_ms,
+             library_ms=None, call_ms=ch_call_ms, device_ms=ch_device_ms,
+             empty_kernel_ms=floor_ms, retaken_traces=ch_retaken,
              mismatch=dict(checks=len(hash_checks), all_equal=True)),
     ] + serve_kernels + b4r_kernels
 
@@ -653,11 +755,15 @@ def check_and_time_serve_kernels(gen, dev):
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations")
 
+    retaken = RETAKEN_TRACES[0]
     eb_t = {B: eb_times(B) for B in (512, 262144)}
+    eb_retaken = RETAKEN_TRACES[0] - retaken
     del tables, table, cat
     torch.cuda.empty_cache()
+    retaken = RETAKEN_TRACES[0]
     di_t = {B: di_times(B) for B in (512, 262144)}
     di_f32 = {B: di_times(B, torch.float32) for B in (512, 262144)}  # on no path
+    di_retaken = RETAKEN_TRACES[0] - retaken
     for B, r in eb_t.items():
         log(f"embedding_bag, 26 fields in one launch, batch {B}: kernel {r['ms']:.4f} "
             f"ms (profiler; {r['bound_ms'] / r['ms']:.1%} of the bound; one call "
@@ -687,12 +793,12 @@ def check_and_time_serve_kernels(gen, dev):
               "src/repro/kernels/embedding_bag/kernel.py:23", eb_t, eb_checks,
               max(c["max_abs_err"] for c in eb_checks),
               "serve_bulk, batch 262144 x 26 fields, one launch",
-              ("library_device_ms", "one_field_ms")),
+              ("library_device_ms", "one_field_ms"), retaken_traces=eb_retaken),
         entry("dot_interaction", "src/repro_torch/kernels/csrc/dot_interaction.cu",
               "src/repro/kernels/dot_interaction/kernel.py:22", di_t, di_checks,
               max(c["max_abs_err"] for c in di_checks),
               "serve_bulk, (262144, 27, 64) bf16, tensor cores", ("library_device_ms",),
-              f32_route=dict(launches_on_paths=0, **{
+              retaken_traces=di_retaken, f32_route=dict(launches_on_paths=0, **{
                   f"batch_{B}": r for B, r in di_f32.items()})),
     ]
 
@@ -738,6 +844,12 @@ def check_and_time_flash(gen, dev):
     shapes += [(b, 200, 200, 2, 2, 32, c, dt) for b in (512, B4R_SLICE) for c in (False, True)
                for dt in (bf16, f32)]
     shapes += [(3, 17, 17, 4, 1, 16, True, dt) for dt in (bf16, f32)]
+    # the f32 route's other head widths, 8-key tails and keys past its
+    # shared-memory budget (staged in chunks)
+    shapes += [(b, sq, sk, hq, hkv, d, c, f32) for b, sq, sk, hq, hkv, d, c in (
+        (2, 45, 1025, 4, 1, 128, True), (2, 45, 257, 4, 1, 48, False),
+        (3, 17, 1, 4, 1, 1, True), (2, 200, 200, 4, 1, 32, True),
+        (1, 64, 1500, 2, 2, 32, False))]
     shapes += [(b, sq, sk, hq, hkv, d, c, bf16) for b, sq, sk, hq, hkv, d, c in (
         (2, 257, 257, 4, 1, 64, False), (4, 1, 200, 2, 2, 32, False),
         (2, 200, 17, 2, 1, 128, False), (2, 257, 130, 2, 2, 100, True),
@@ -788,6 +900,7 @@ def check_and_time_flash(gen, dev):
 
     # 8 sets of 13 MB each at batch 512 exceed the 50 MB L2, as new request
     # batches do; one 65,536-row set is 1.7 GB a tensor
+    retaken = RETAKEN_TRACES[0]
     p99 = times(512, 8, bf16, "flash_kernel_mma")
     bulk = times(B4R_SLICE, 2, bf16, "flash_kernel_mma")
     p99_f32 = times(512, 8, f32, "flash_kernel_f32")
@@ -812,6 +925,7 @@ def check_and_time_flash(gen, dev):
                                         "vs_library", "library_device_ms",
                                         "call_vs_library_call")},
                 serve_p99=p99, checks=len(checks),
+                retaken_traces=RETAKEN_TRACES[0] - retaken,
                 f32_route=dict(source="src/repro_torch/kernels/csrc/flash_attention.cu",
                                shape="(512, 200, 2, 32) f32, not causal",
                                launches_on_paths=0, **p99_f32))
@@ -879,7 +993,7 @@ def check_and_time_adaptive_quant(gen, dev):
                   "xu": n_cand * 2 + 3}
     b_ms, b_by = bound(nbytes, {c: n_el * n for c, n in per.items()})
     pb_ms, pb_by = bound(nbytes, {c: n_el * n for c, n in per_parent.items()})
-    ms_by_bits = {}
+    ms_by_bits, retaken = {}, RETAKEN_TRACES[0]
     for bits in (2, 3, 4, 8):
         ms_by_bits[bits] = kernel_ms(lambda: aq.adaptive_quant_cuda(
             x, bits=bits, num_bins=25, ratio=0.5), "adaptive_quant_kernel", reps=20)
@@ -902,6 +1016,7 @@ def check_and_time_adaptive_quant(gen, dev):
                 library_ms=None, ms_by_bits=ms_by_bits, checks=len(checks),
                 max_code_diff_frac=max(c["code_diff_frac"] for c in checks),
                 bound_ms_earlier_mix=pb_ms, bound_by_earlier_mix=pb_by,
+                retaken_traces=RETAKEN_TRACES[0] - retaken,
                 **{k: r[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")})
 
 

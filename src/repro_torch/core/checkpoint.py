@@ -55,7 +55,7 @@ from ..device import resolve_device
 # a module import: kernels.adaptive_quant.ops imports core.packing, so it may
 # still be initializing when this module runs
 from ..kernels.adaptive_quant import ops as aq_ops
-from ..kernels.chunk_hash.ops import chunk_hash32, chunk_hash32_device
+from ..kernels.chunk_hash.ops import chunk_hash32, hash_value, hash_words_async
 from . import manifest as mf
 from . import packing
 from . import range_reader as rr
@@ -365,16 +365,20 @@ class CheckNRunManager:
                       num_bins=qcfg.num_bins, ratio=qcfg.ratio)
             if self.config.fused_pack:
                 pq = aq_ops.quant_pack(x, **kw)
-                h = None
+                h, n_words = None, 0
                 if self.config.chunk_hash:
                     # hash exactly the words the payload serializes:
-                    # ceil(payload_nbytes / 4), tail bits zero by packing
-                    nbytes = (int(pq.count) * qcfg.bits + 7) // 8
-                    h = chunk_hash32_device(pq.words,
-                                            count=(nbytes + 3) // 4)
-                return (pq.scale.cpu().numpy(), pq.zero.cpu().numpy(),
-                        packing.words_to_payload(pq.words.cpu().numpy(),
-                                                 pq.count, qcfg.bits), h)
+                    # ceil(payload_nbytes / 4), tail bits zero by packing.
+                    # Launched behind quant_pack; its 4 bytes come back
+                    # with the copies below, which synchronize the stream.
+                    n_words = ((int(pq.count) * qcfg.bits + 7) // 8 + 3) // 4
+                    h = hash_words_async(pq.words, count=n_words)
+                    h = h.to("cpu", non_blocking=True)
+                scale, zero = pq.scale.cpu().numpy(), pq.zero.cpu().numpy()
+                words = pq.words.cpu().numpy()
+                return (scale, zero,
+                        packing.words_to_payload(words, pq.count, qcfg.bits),
+                        None if h is None else hash_value(h, n_words))
             q = aq_ops.quant_codes(x, **kw)
             payload = packing.pack_bits(q.codes.cpu().numpy(), qcfg.bits)
             return (q.scale.cpu().numpy(), q.zero.cpu().numpy(), payload,

@@ -115,7 +115,7 @@ def _bind(lib: ctypes.CDLL) -> None:
                                           i32, vp]
     lib.adaptive_quant_launch.restype = i32
     lib.flash_attention_f32_launch.argtypes = ([vp] * 4 + [i32] * 6 + [i64] * 9
-                                               + [ctypes.c_float, i32, vp])
+                                               + [ctypes.c_float, i32, i32, i32, vp])
     lib.flash_attention_f32_launch.restype = i32
     lib.flash_attention_mma_launch.argtypes = ([vp] * 4 + [i32] * 6 + [i64] * 9
                                                + [ctypes.c_float, i32, i32, i32, vp])

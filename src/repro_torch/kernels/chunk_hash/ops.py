@@ -8,6 +8,13 @@ plain PyTorch version for a CPU tensor. The result equals
 (``core.packing.words_to_payload``) because the packed stream's tail bits
 beyond the payload are zero.
 
+``hash_words_async(words, count)`` is the same hash without the wait: it
+launches the kernel (a 4-byte memset and one launch, no PyTorch fill) and
+returns the one-element device tensor the words' term sum lands in, so the
+save path reads its 4 bytes after the payload's own copies have
+synchronized the stream; ``hash_value(sum, count)`` then applies the
+length fold and avalanche on the host.
+
 The plain version works in int64 with ``& 0xFFFFFFFF`` (PyTorch has no
 uint32 shifts or multiplies); each 32x32-bit product is split into 16-bit
 halves so that no int64 product overflows.
@@ -42,42 +49,76 @@ def mix_terms_torch(words: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     return _mul32(t, PRIME3)
 
 
-def hash_words_torch(words: torch.Tensor, count: int) -> int:
-    """Plain PyTorch hash of ``words[:count]`` on the words' device."""
+def _sum_torch(words: torch.Tensor, count: int) -> int:
+    """The terms' sum mod 2**32 over ``words[:count]``, in plain PyTorch."""
     w = words[:count].to(torch.int64) & _MASK
     i = torch.arange(count, dtype=torch.int64, device=w.device)
-    acc = int(mix_terms_torch(w, i).sum().item()) & _MASK
-    return finalize(acc, count)
+    return int(mix_terms_torch(w, i).sum().item()) & _MASK
 
 
-def hash_words_cuda(words: torch.Tensor, count: int) -> int:
-    """The CUDA kernel's hash of ``words[:count]`` (words uint32, 1-D,
-    contiguous, on a CUDA device). One 4-byte read-back."""
+def hash_words_torch(words: torch.Tensor, count: int) -> int:
+    """Plain PyTorch hash of ``words[:count]`` on the words' device."""
+    return finalize(_sum_torch(words, count), count)
+
+
+def hash_words_torch_async(words: torch.Tensor, count: int) -> torch.Tensor:
+    """The plain counterpart of ``hash_words_cuda_async``: the terms' sum
+    over ``words[:count]`` as one int32 element (the sum's bits) on the
+    words' device."""
+    s = _sum_torch(words, count)
+    return torch.tensor([s - (1 << 32) if s >> 31 else s], dtype=torch.int32,
+                        device=words.device)
+
+
+def hash_value(s: torch.Tensor, count: int) -> int:
+    """The hash of ``count`` words from the sum tensor that
+    ``hash_words_async(words, count)`` returned: the length fold and
+    avalanche of ``ref.finalize``, on the host."""
+    return finalize(int(s.reshape(-1)[0].item()) & _MASK, count)
+
+
+def hash_words_cuda_async(words: torch.Tensor, count: int) -> torch.Tensor:
+    """Launch the CUDA kernel on ``words[:count]`` (words uint32 or int32,
+    1-D, contiguous, on a CUDA device; any 4-byte offset) on the current
+    stream, and return at once the one-element int32 device tensor the
+    terms' sum lands in (``hash_value`` finishes it). The launcher zeroes
+    that tensor with a 4-byte memset on the stream: one launch, no PyTorch
+    fill, no wait, no state kept between calls."""
     if not words.is_cuda:
-        raise ValueError("hash_words_cuda needs a CUDA tensor")
+        raise ValueError("hash_words_cuda_async needs a CUDA tensor")
     if words.dtype not in (torch.uint32, torch.int32):
         raise TypeError(f"words must be uint32, got {words.dtype}")
     if words.dim() != 1 or not words.is_contiguous():
         raise ValueError("words must be a contiguous 1-D tensor")
     if not 0 <= count <= words.shape[0]:
         raise ValueError(f"count {count} outside [0, {words.shape[0]}]")
-    if count == 0:
-        return finalize(0, 0)
-    acc = torch.zeros(1, dtype=torch.int32, device=words.device)
-    launch_sum(words, count, acc)
-    return finalize(int(acc.item()) & _MASK, count)
-
-
-def launch_sum(words: torch.Tensor, count: int, acc: torch.Tensor) -> None:
-    """Launch the kernel: add ``sum(mix(w_i + i*P2)) mod 2**32`` over
-    ``words[:count]`` into the zeroed 4-byte ``acc`` on the current stream,
-    without waiting for it. ``hash_words_cuda`` checks the arguments."""
+    if count >= 1 << 32:
+        raise ValueError(f"count {count} at or above 2**32 words")
     lib = library()
     with torch.cuda.device(words.device):
-        err = lib.chunk_hash_launch(words.data_ptr(), count, acc.data_ptr(),
+        out = torch.empty(1, dtype=torch.int32, device=words.device)
+        err = lib.chunk_hash_launch(words.data_ptr(), count, out.data_ptr(),
                                     stream_of(words))
         check(err, "chunk_hash_launch")
         LAUNCHES.add()
+    return out
+
+
+def hash_words_cuda(words: torch.Tensor, count: int) -> int:
+    """The CUDA kernel's hash of ``words[:count]`` (the arguments of
+    ``hash_words_cuda_async``). Waits for it: one 4-byte read-back."""
+    return hash_value(hash_words_cuda_async(words, count), count)
+
+
+def hash_words_async(words: torch.Tensor, count=None) -> torch.Tensor:
+    """Start hashing ``words[:count]`` where they live, without waiting:
+    the terms' sum as a one-element int32 tensor on the words' device
+    (``hash_value(sum, count)`` gives the hash), from the kernel for a CUDA
+    tensor and the plain version for a CPU tensor."""
+    n = int(words.shape[0]) if count is None else int(count)
+    if words.is_cuda:
+        return hash_words_cuda_async(words, n)
+    return hash_words_torch_async(words, n)
 
 
 def chunk_hash32_device(words: torch.Tensor, count=None) -> int:
@@ -85,10 +126,10 @@ def chunk_hash32_device(words: torch.Tensor, count=None) -> int:
     Python int hash: the kernel for a CUDA tensor, the plain version for a
     CPU tensor."""
     n = int(words.shape[0]) if count is None else int(count)
-    if words.is_cuda:
-        return hash_words_cuda(words, n)
-    return hash_words_torch(words, n)
+    return hash_value(hash_words_async(words, n), n)
 
 
-__all__ = ["LAUNCHES", "chunk_hash32", "chunk_hash32_device", "hash_words_cuda",
-           "hash_words_np", "hash_words_torch", "launch_sum", "mix_terms_torch"]
+__all__ = ["LAUNCHES", "chunk_hash32", "chunk_hash32_device", "hash_value",
+           "hash_words_async", "hash_words_cuda", "hash_words_cuda_async",
+           "hash_words_np", "hash_words_torch", "hash_words_torch_async",
+           "mix_terms_torch"]

@@ -24,15 +24,17 @@ from .ref import flash_attention_torch
 MMA_LAUNCHES = LaunchCounter()   # bf16: the tensor-core kernel
 SIMT_LAUNCHES = LaunchCounter()  # f32: the SIMT kernel
 
-# the SIMT kernel holds a row in four 32-dim register chunks; the
-# tensor-core kernel pads D to a multiple of 16, up to 128
+# the SIMT kernel pads D to a multiple of 32, the tensor-core kernel to a
+# multiple of 16, both up to 128
 MAX_HEAD_DIM = 128
 
 
 def _vec16(t: torch.Tensor) -> bool:
-    """Base pointer and batch, sequence and head strides all multiples of 8
-    elements: whole 8-column pieces of a bf16 row are 16-byte aligned."""
-    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+    """Base pointer and batch, sequence and head strides all multiples of
+    16 bytes (8 bf16 or 4 f32 elements): whole 16-byte pieces of a row are
+    aligned."""
+    return t.data_ptr() % 16 == 0 and all(s * t.element_size() % 16 == 0
+                                          for s in t.stride()[:3])
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -41,7 +43,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     f32 through the SIMT kernel. q (B, Sq, Hq, D), k and v (B, Sk, Hkv, D),
     all bf16 or all f32 on one CUDA device, each with unit stride along D
     (any batch, sequence and head strides: the projections' views are taken
-    as they lie; bf16 views that are not 16-byte aligned load element by
+    as they lie; views that are not 16-byte aligned load element by
     element); D <= 128, Hq % Hkv == 0. Returns a contiguous (B, Sq, Hq, D)
     tensor of q's dtype."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
@@ -76,11 +78,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lib = library()
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 B, Sq, Sk, Hq, Hkv, D, *q.stride()[:3], *k.stride()[:3],
-                *v.stride()[:3], float(np.float32(1.0 / np.sqrt(D))), int(causal))
+                *v.stride()[:3], float(np.float32(1.0 / np.sqrt(D))), int(causal),
+                int(_vec16(q)), int(_vec16(k) and _vec16(v)))
         with torch.cuda.device(q.device):
             if q.dtype == torch.bfloat16:
-                err = lib.flash_attention_mma_launch(
-                    *args, int(_vec16(q)), int(_vec16(k) and _vec16(v)), stream_of(q))
+                err = lib.flash_attention_mma_launch(*args, stream_of(q))
                 check(err, "flash_attention_mma_launch")
                 MMA_LAUNCHES.add()
             else:

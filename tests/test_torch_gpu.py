@@ -90,6 +90,79 @@ def test_chunk_hash_kernel_matches_plain_and_oracle(cuda, n):
         assert ops.chunk_hash32_device(t, count=n - 1) == hash_words_np(w[:n - 1])
 
 
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 1023, 524_287, 1_048_579])
+def test_chunk_hash_on_misaligned_views(cuda, offset, n):
+    """w[offset:] starts 4, 8 or 12 bytes past a 16-byte boundary: the
+    kernel reads the head word by word and the rest as uint4s, and the
+    index of each term is the word's position in the view."""
+    from repro_torch.kernels.chunk_hash import ops
+    from repro_torch.kernels.chunk_hash.ref import hash_words_np
+
+    w = np.random.default_rng(n + offset).integers(0, 2**32, size=n + offset,
+                                                   dtype=np.uint32)
+    t = torch.from_numpy(w).to(cuda)[offset:]
+    assert n == 0 or t.data_ptr() % 16 == 4 * offset
+    assert ops.hash_words_cuda(t, n) == hash_words_np(w[offset:])
+    assert ops.hash_value(ops.hash_words_async(t, n), n) == hash_words_np(w[offset:])
+
+
+def test_chunk_hash_repeated_calls_on_one_buffer(cuda):
+    """1,000 calls on one stream, the results read only after the last
+    launch: each call zeroes and fills its own sum, so every result is the
+    oracle's."""
+    from repro_torch.kernels.chunk_hash import ops
+    from repro_torch.kernels.chunk_hash.ref import hash_words_np
+
+    w = np.random.default_rng(7).integers(0, 2**32, size=524_291, dtype=np.uint32)
+    t = torch.from_numpy(w).to(cuda)
+    counts = [524_288 - 13 * i for i in range(1000)]
+    before = ops.LAUNCHES.count
+    outs = [ops.hash_words_async(t, c) for c in counts]
+    assert ops.LAUNCHES.count == before + 1000
+    torch.cuda.synchronize()
+    assert ([ops.hash_value(h, c) for h, c in zip(outs, counts)]
+            == [hash_words_np(w[:c]) for c in counts])
+
+
+def test_chunk_hash_from_two_threads_on_two_streams(cuda):
+    """Two threads hash on two streams at once, as the save path's two
+    encode workers may: each call's memset and blocks' adds go to its own
+    sum, on its own stream."""
+    import threading
+
+    from repro_torch.kernels.chunk_hash import ops
+    from repro_torch.kernels.chunk_hash.ref import hash_words_np
+
+    rng = np.random.default_rng(3)
+    data = [rng.integers(0, 2**32, size=n, dtype=np.uint32)
+            for n in (524_288, 1_048_579)]
+    want = [hash_words_np(w) for w in data]
+    bufs = [torch.from_numpy(w).to(cuda) for w in data]
+    torch.cuda.synchronize()
+    got = [[], []]
+    errors = []
+
+    def work(i):
+        try:
+            stream = torch.cuda.Stream()
+            with torch.cuda.stream(stream):
+                outs = [ops.hash_words_async(bufs[i], bufs[i].shape[0])
+                        for _ in range(200)]
+                stream.synchronize()
+                got[i] = [ops.hash_value(h, bufs[i].shape[0]) for h in outs]
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not errors, errors
+    assert got[0] == [want[0]] * 200 and got[1] == [want[1]] * 200
+
+
 def test_wrappers_check_their_arguments(cuda):
     from repro_torch.kernels.adaptive_quant.ops import quant_pack_cuda
     from repro_torch.kernels.chunk_hash.ops import hash_words_cuda
@@ -105,6 +178,8 @@ def test_wrappers_check_their_arguments(cuda):
                         num_bins=45, n_steps=9)
     with pytest.raises(ValueError):
         hash_words_cuda(torch.zeros(8, dtype=torch.int32, device=cuda), 9)
+    with pytest.raises(ValueError):
+        hash_words_cuda(torch.zeros(8, dtype=torch.int32, device=cuda)[::2], 4)
 
 
 def test_cuda_tensors_never_take_the_plain_path(cuda):
@@ -421,6 +496,36 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, Hq, Hkv, D, causa
     tol = 2e-3 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(got, ref.flash_attention_torch(q, k, v, causal=causal),
                                rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("D", [1, 16, 32, 48, 64, 100, 128])
+@pytest.mark.parametrize("Sk", [1, 17, 200, 257, 1025])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_f32_route_shapes(cuda, D, Sk, causal):
+    """The f32 route at every padded head width (32, 64, 96, 128) and key
+    lengths that leave 8-key tails, stage k and v whole or in chunks
+    (1025 keys exceed the budget at every D), with 4 q heads on one kv
+    head, 45 q rows (a partial q tile) and q, k, v as strided views whose
+    strides are not multiples of 4 floats (element-by-element staging)
+    beside contiguous copies (16-byte copies): both within 2e-3 of the
+    plain version, and equal to each other bit for bit."""
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    rng = np.random.default_rng(D * 7 + Sk)
+    B, Sq, Hq, Hkv = 2, 45, 4, 1
+    q = torch.from_numpy(rng.normal(size=(B, Sq, Hq, D + 1)).astype(np.float32)).to(cuda)[..., 1:]
+    k, v = (torch.from_numpy(rng.normal(size=(B, Sk, Hkv, D + 1)).astype(np.float32))
+            .to(cuda)[..., :D] for _ in range(2))
+    assert not ops._vec16(q) and not ops._vec16(k)
+    before = ops.SIMT_LAUNCHES.count
+    got = ops.flash_attention(q, k, v, causal=causal)
+    dense = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                causal=causal)
+    assert ops.SIMT_LAUNCHES.count == before + 2
+    want = ref.flash_attention_torch(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(dense, want, rtol=2e-3, atol=2e-3)
+    assert torch.equal(got, dense)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
