@@ -32,6 +32,17 @@ Phases:
      one more training save by its delta alone. Its path runs
      ``embedding_bag`` (one launch a batch for all 26 fields) and
      ``dot_interaction``.
+  4b. sharded: dlrm-rm2 at phase 3's width and cap, saving through 4
+     simulated hosts (per-host shard writers, threads of this process on
+     the one card, and a coordinator-less two-phase commit): saves at
+     steps 2 (full, 188 chunks), 4 and 6; the loss of host 1 at step 7,
+     recovered ``exact`` (survivors from the step-6 boundary snapshot,
+     host 1's shard from the store); a save at 8; the loss of host 2 at
+     step 9, recovered ``cpr`` (only its rows roll back); a save at 10; a
+     read of host 1's shard at step 6 under 3 hosts. Each save's
+     ``quant_pack`` and ``chunk_hash`` launches equal its chunks; then
+     whether one training step repeated from the same state on the card
+     gives the same bits.
 
   5. bert4rec at full width (1,000,448 items, dim 64, 2 blocks of 2 heads
      of 32, seq 200, d_ff 256, bf16 compute): the Trainer at batch 65,536
@@ -1023,9 +1034,44 @@ def check_and_time_adaptive_quant(gen, dev):
 # ------------------------------------------------------------------ phase 3
 
 
-def phase_main_path(kernels, root):
+def _collect_saves(manager) -> list:
+    """Keep every save ``manager`` takes (``Trainer.checkpoint`` drops its
+    future) as ``[future, submitted, done]``: the ``SaveResult`` carries
+    the pipelines' stats (a single-host ``wall_s`` is its pipeline's alone),
+    and done − submitted is the whole save, row selection to commit and
+    retention (the writer thread is idle at submission: the Trainer waits
+    for the previous save first)."""
+    saves = []
+    save = manager.save
+
+    def keep(snap, block=False):
+        entry = [None, time.monotonic(), None]
+        saves.append(entry)
+        entry[0] = save(snap, block)
+        entry[0].add_done_callback(lambda _: entry.__setitem__(2, time.monotonic()))
+        return entry[0]
+
+    manager.save = keep
+    return saves
+
+
+def _save_walls(saves):
+    """(whole-save seconds, pipeline seconds) of each kept save: for a
+    sharded save the pipeline figure is its slowest host's."""
+    out = []
+    for entry in saves:
+        st = entry[0].result().pipeline_stats
+        while entry[2] is None:  # the done callback runs just after result()
+            time.sleep(0.001)
+        pipe = max(h["wall_s"] for h in st["per_host"]) if "per_host" in st else st["wall_s"]
+        out.append((round(entry[2] - entry[1], 3), round(pipe, 3)))
+    return out
+
+
+def phase_main_path(kernels, root, figures=None):
     """Train, fail, restore and save again into ``root``; returns the
-    resumed Trainer, still open, for the serve phase."""
+    resumed Trainer, still open, for the serve phase. ``figures``, when
+    given, receives the first Trainer's save wall times and stalls."""
     import numpy as np
     import torch
 
@@ -1057,11 +1103,17 @@ def phase_main_path(kernels, root):
     ch.LAUNCHES.reset()
     t0 = time.monotonic()
     tr = Trainer(bundle, store, ckpt, TrainerConfig(total_steps=6, log_every=1))
+    saves = _collect_saves(tr.manager)
     check(tr.init_or_restore() == 0, "fresh start")
     tr.run(6)
     run_s = time.monotonic() - t0
     tr.manager.wait()  # the step-6 save, still in flight
     wait_s = time.monotonic() - t0 - run_s
+    save_wall = _save_walls(saves)
+    if figures is not None:
+        figures.update(save_wall_s=[w for w, _ in save_wall],
+                       pipeline_wall_s=[p for _, p in save_wall],
+                       stall_s=[round(x, 4) for x in tr.stall_times])
     live = {k: v.cpu().numpy() for k, v in tr.state.params["tables"].items()}
     try:
         tr.run(2, fail_at_step=7)
@@ -1082,7 +1134,8 @@ def phase_main_path(kernels, root):
         check(all(c.hash32 is not None for c in recs), f"hash32 on step {s}")
         per_step[s] = dict(kind=man.kind, chunks=len(recs), nbytes=man.nbytes_total)
     log(f"saves: {json.dumps(per_step)}; launches {launches}; "
-        f"stall_s {tr.stall_times}; init + 6 steps + 3 snapshots {run_s:.2f} s, "
+        f"stall_s {tr.stall_times}; save wall_s (whole, pipeline) {save_wall}; "
+        f"init + 6 steps + 3 snapshots {run_s:.2f} s, "
         f"then the last save {wait_s:.2f} s; all with the failed step "
         f"{train_s:.1f} s; "
         f"losses {[round(h['loss'], 5) for h in tr.history]}")
@@ -1289,6 +1342,221 @@ def phase_serve(kernels, root, trainer, device="cuda", reduced=False,
                 traced_ms=traced_ms, device_busy_ms=busy_ms,
                 serve_max_abs_dp=serve_err, sync_s=sync_s, sync_bytes=sync_bytes,
                 catchup_s=catchup_s, catchup_bytes=delta_bytes)
+
+# ------------------------------------------------------------------ phase 4b
+
+SHARDED_HOSTS = 4
+
+
+def phase_sharded(kernels, root, single_host=None, device="cuda", reduced=False):
+    """dlrm-rm2 at phase 3's width and cap, saving through ``SHARDED_HOSTS``
+    simulated hosts into ``root``, through the loss of one host recovered
+    ``exact``, another recovered ``cpr``, and a resharded read.
+    ``single_host`` holds phase 3's save figures, printed beside these;
+    ``device`` and ``reduced`` let the phase be rehearsed on the CPU at the
+    reduced cell."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_cell
+    from repro_torch.core import (CheckNRunManager, CheckpointConfig,
+                                  LocalFSStore, PAPER_DEFAULTS, scan_store)
+    from repro_torch.core import manifest as mf
+    from repro_torch.core import range_reader as rr
+    from repro_torch.data.cells import batch_for_cell
+    from repro_torch.dist.recovery import shard_nbytes
+    from repro_torch.dist.sharding import row_shard_bounds
+    from repro_torch.kernels.adaptive_quant import ops as aq
+    from repro_torch.kernels.chunk_hash import ops as ch
+    from repro_torch.train.loop import Trainer, TrainerConfig, batch_to_device
+    from repro_torch.tree import flatten_with_path, keystr, tree_map
+
+    t_phase = time.monotonic()
+    H = SHARDED_HOSTS
+    cap = None if reduced else VOCAB_CAP
+    bundle = get_cell("dlrm-rm2", "train_batch", reduced=reduced, device=device,
+                      vocab_cap=cap)
+    ckpt = CheckpointConfig(interval_batches=2, policy="intermittent",
+                            quant=PAPER_DEFAULTS[4], keep_latest=10,
+                            device=device, num_hosts=H)
+    store = LocalFSStore(root)
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def host_rows(state, key):
+        return {n: t.cpu().numpy() for n, t in getattr(state, key)["tables"].items()}
+
+    def shard(name, h, n=H):
+        return row_shard_bounds(bundle.tracked[name].rows, n)[h]
+
+    def check_step(s):
+        """A committed 4-host step: every chunk under its host's prefix,
+        with hash32; one vote a host. Returns its chunk count."""
+        man = mf.load(store, s)
+        check(man.layout["num_hosts"] == H and man.shards["num_hosts"] == H,
+              f"step {s}: the manifest's layout says {H} hosts: {man.layout}")
+        check(mf.list_part_hosts(store, s) == list(range(H)), f"step {s}: {H} votes")
+        recs = [c for t in man.tables.values() for c in t.chunks]
+        check(recs and all(c.hash32 is not None for c in recs), f"hash32 on step {s}")
+        check(all(0 <= rr.host_of_chunk_key(c.key) < H and c.key.startswith(
+            mf.chunk_host_prefix(s, rr.host_of_chunk_key(c.key))) for c in recs),
+              f"step {s}: every chunk key lies under host_<h>/")
+        return man.kind, len(recs), man.nbytes_total
+
+    aq.LAUNCHES.reset()
+    ch.LAUNCHES.reset()
+    tr = Trainer(bundle, store, ckpt, TrainerConfig(total_steps=10, log_every=1))
+    saves = _collect_saves(tr.manager)
+    check(tr.init_or_restore() == 0, "fresh start")
+    t0 = time.monotonic()
+    tr.run(6)
+    tr.manager.wait()
+    run_s = time.monotonic() - t0
+    check(mf.list_steps(store) == [2, 4, 6], f"committed steps {mf.list_steps(store)}")
+    per_step = {s: check_step(s) for s in (2, 4, 6)}
+    if not reduced:
+        check(per_step[2][0] == "full" and per_step[2][1] == 188,
+              f"the 4-host full save writes 188 chunks: {per_step[2]}")
+    n_chunks = sum(v[1] for v in per_step.values())
+    check(aq.LAUNCHES.count == n_chunks and ch.LAUNCHES.count == n_chunks,
+          f"launches {aq.LAUNCHES.count}, {ch.LAUNCHES.count} == chunks of steps "
+          f"2-6 {n_chunks}")
+    check(scan_store(LocalFSStore(root)).ok, "integrity scan of the sharded chain")
+
+    # (a) host 1 is lost mid-interval at step 7: exact recovery
+    tr.run(1)
+    snap6 = tr._boundary_snaps[6]
+    victim = 1
+    t1 = time.monotonic()
+    resumed = tr.recover_host(victim, "exact")
+    sync()
+    exact_s = time.monotonic() - t1
+    check(resumed == 6 and tr.state.step == 6 and tr.last_recovery["kind"] == "partial",
+          f"exact recovery resumes at 6, kind partial: {resumed}, {tr.last_recovery}")
+    met = tr.manager.metrics()
+    part_bytes, part_s = met.restore_bytes_total, met.last_recovery_wall_s
+    budget = shard_nbytes(store, victim, 6)
+    check(0 < part_bytes <= budget,
+          f"restore bytes {part_bytes} <= host {victim}'s shard {budget}")
+    probe = CheckNRunManager(LocalFSStore(root), ckpt)
+    t1 = time.monotonic()
+    full6 = probe.restore(6)
+    full_s = time.monotonic() - t1
+    full_bytes = probe.metrics().restore_bytes_total
+    got, acc = host_rows(tr.state, "params"), host_rows(tr.state, "opt_state")
+    for name in bundle.tracked:
+        lo, hi = shard(name, victim)
+        for mine, snap_rows, full_rows in (
+                (got[name], snap6.tables[name], full6.tables[name]),
+                (acc[name], snap6.row_state[name]["opt_acc"],
+                 full6.row_state[name]["opt_acc"])):
+            check(np.array_equal(mine[:lo], snap_rows[:lo])
+                  and np.array_equal(mine[hi:], snap_rows[hi:]),
+                  f"{name}: survivors' rows == the step-6 boundary snapshot")
+            check(np.array_equal(mine[lo:hi], full_rows[lo:hi]),
+                  f"{name}: host {victim}'s rows == restore(6)'s")
+    del got, acc
+    tr.run(2)
+    tr.manager.wait()
+    check(mf.latest_step(store) == 8, "the save at 8 after the exact recovery")
+    per_step[8] = check_step(8)
+
+    # (b) host 2 is lost at step 9: cpr recovery, survivors stay live
+    tr.run(1)
+    live = host_rows(tr.state, "params")
+    victim2 = 2
+    t1 = time.monotonic()
+    resumed = tr.recover_host(victim2, "cpr")
+    sync()
+    cpr_s = time.monotonic() - t1
+    check(resumed == 9 and tr.state.step == 9 and tr.last_recovery["kind"] == "partial",
+          f"cpr recovery resumes at 9, kind partial: {resumed}, {tr.last_recovery}")
+    part8 = probe.restore_part(victim2, 8)
+    got = host_rows(tr.state, "params")
+    for name in bundle.tracked:
+        lo, hi = shard(name, victim2)
+        check(np.array_equal(got[name][:lo], live[name][:lo])
+              and np.array_equal(got[name][hi:], live[name][hi:]),
+              f"{name}: rows outside host {victim2}'s shard stay bitwise live")
+        check(np.array_equal(got[name][lo:hi], part8.tables[name]),
+              f"{name}: host {victim2}'s rows == the committed step 8's")
+    del live, got, part8
+    tr.run(1)
+    tr.manager.wait()
+    check(mf.latest_step(store) == 10, "the save at 10 after the cpr recovery")
+    per_step[10] = check_step(10)
+    results = [f.result() for f, _, _ in saves]
+    walls = _save_walls(saves)
+    check([r.step for r in results] == [2, 4, 6, 8, 10] and all(
+        r.pipeline_stats["num_hosts"] == H for r in results), "five sharded saves")
+    launches = {"quant_pack": aq.LAUNCHES.count, "chunk_hash": ch.LAUNCHES.count}
+    n_chunks = sum(v[1] for v in per_step.values())
+    check(launches["quant_pack"] == n_chunks and launches["chunk_hash"] == n_chunks,
+          f"launches {launches} == chunks written {n_chunks}")
+    check(scan_store(LocalFSStore(root)).ok, "integrity scan after the recoveries")
+    check(all(math.isfinite(h["loss"]) for h in tr.history), "finite losses")
+
+    # (c) host 1's shard of step 6 read under 3 hosts
+    t1 = time.monotonic()
+    rs3 = probe.restore_part(1, step=6, num_hosts=3)
+    reshard_s = time.monotonic() - t1
+    check(rs3.extra["shard"]["resharded"] and rs3.extra["shard"]["num_hosts"] == 3
+          and probe.metrics().recoveries_resharded_total == 1,
+          f"resharded read: {rs3.extra['shard']}")
+    for name, rows in rs3.tables.items():
+        lo, hi = rs3.extra["shard"]["row_range"][name]
+        check((lo, hi) == shard(name, 1, 3) and np.array_equal(rows, full6.tables[name][lo:hi]),
+              f"{name}: resharded rows == restore(6)'s")
+    probe.close()
+    del full6, rs3
+
+    # (d) one training step from one state, three times: the same bits?
+    batch = batch_to_device(batch_for_cell(bundle, 4242), bundle.device)
+    outs = []
+    for _ in range(3):
+        st = dataclasses.replace(
+            tr.state, params=tree_map(torch.clone, tr.state.params),
+            opt_state=tree_map(torch.clone, tr.state.opt_state),
+            touched={k: v.clone() for k, v in tr.state.touched.items()})
+        new, _ = bundle.step_fn(st, batch)
+        outs.append({keystr(p): x for p, x in flatten_with_path(
+            {"params": new.params, "opt": new.opt_state})})
+    sync()
+    differ, worst = {}, 0.0
+    for other in outs[1:]:
+        for k, a in outs[0].items():
+            n = int((a != other[k]).sum())
+            if n:
+                differ[k] = max(differ.get(k, 0), n)
+                worst = max(worst, float((a.float() - other[k].float()).abs().max()))
+    del outs, st, new
+    tr.close()
+
+    per_host = [{k: (round(v, 4) if isinstance(v, float) else v)
+                 for k, v in h.items() if k != "occupancy"}
+                for h in results[0].pipeline_stats["per_host"]]
+    out = dict(
+        phase_s=round(time.monotonic() - t_phase, 1),
+        steps_run_s=round(run_s, 3),
+        saves={r.step: dict(kind=per_step[r.step][0], chunks=per_step[r.step][1],
+                            nbytes=per_step[r.step][2], wall_s=w[0],
+                            slowest_host_pipeline_s=w[1])
+               for r, w in zip(results, walls)},
+        stall_s=[round(x, 4) for x in tr.stall_times],
+        single_host=single_host, launches=launches,
+        restore_part=dict(wall_s=part_s, payload_bytes=part_bytes, shard_budget=budget),
+        full_restore=dict(wall_s=round(full_s, 3), payload_bytes=full_bytes),
+        resharded_read_s=round(reshard_s, 3),
+        recover_host_s=dict(exact=round(exact_s, 3), cpr=round(cpr_s, 3)),
+        repeat_step_bitwise=not differ, repeat_step_differs=differ,
+        repeat_step_max_abs=worst)
+    log(f"sharded dlrm-rm2, {H} simulated hosts: {json.dumps(out)}")
+    log(f"sharded: per-host pipeline stats of the full save at step 2: "
+        f"{json.dumps(per_host)}")
+    record_launches(kernels, "dlrm-rm2 sharded train", launches)
+    return out
 
 
 # ------------------------------------------------------------------ phase 5
@@ -1561,12 +1829,18 @@ def main(argv=None) -> int:
     if not args.kernels_only:
         root = tempfile.mkdtemp(prefix="cnr-chip-smoke-")
         trainer = None
+        single_host = {}
         try:
-            trainer = phase_main_path(kernels, root)
+            trainer = phase_main_path(kernels, root, single_host)
             phase_serve(kernels, root, trainer)
         finally:
             if trainer is not None:
                 trainer.close()
+            shutil.rmtree(root, ignore_errors=True)
+        root = tempfile.mkdtemp(prefix="cnr-chip-smoke-sharded-")
+        try:
+            phase_sharded(kernels, root, single_host)
+        finally:
             shutil.rmtree(root, ignore_errors=True)
         root = tempfile.mkdtemp(prefix="cnr-chip-smoke-b4r-")
         try:

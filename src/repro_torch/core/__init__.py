@@ -4,8 +4,16 @@ from .bitwidth import BitwidthController, expected_failures, select_bits
 from .checkpoint import (
     CheckNRunManager,
     CheckpointConfig,
+    PartialRecoveryError,
     RestoredState,
     SaveResult,
+)
+from .coordinator import (
+    CommitContext,
+    CommitCoordinator,
+    ShardCommitError,
+    build_manifest,
+    try_commit,
 )
 from .incremental import (
     ConsecutiveIncrement,
@@ -38,9 +46,19 @@ from .snapshot import Snapshot, take_snapshot
 from .storage import (
     CheckpointCancelled,
     InMemoryStore,
+    LinkModel,
     LocalFSStore,
     ObjectStore,
     ThrottledStore,
+    host_link,
+)
+from .tracker import (
+    init_touched,
+    mark_touched,
+    merge_touched,
+    reset_touched,
+    shard_indices,
+    touched_fraction,
 )
 
 __all__ = [k for k in dir() if not k.startswith("_")]

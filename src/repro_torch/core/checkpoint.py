@@ -18,9 +18,14 @@ non-overlapping write scheduling with cancellation (straggler mitigation,
 §3.3), and dynamic bit-width fallback (§5.2.1).
 
 The store format is the reference package's (``src/repro``) byte for byte:
-a store written by either package restores in the other. Sharded
-multi-host writers (``num_hosts > 1``) and shard-only recovery
-(``restore_part``) are not ported yet and raise ``NotImplementedError``.
+a store written by either package restores in the other. With
+``num_hosts > 1`` each save goes through per-host shard writers, threads
+of this process that each run their own encode→write pipeline over one
+row-shard, and a coordinator-less two-phase commit
+(``repro_torch.dist.shard_writer``); ``restore_part`` replays one host's
+shard alone (partial recovery and resharding). Hosts as separate OS
+processes (``multiprocess=True``) are not ported yet and raise
+``NotImplementedError`` (ROADMAP A4).
 
 Write-path threading model (see docs/write_path.md):
 
@@ -61,6 +66,7 @@ from . import packing
 from . import range_reader as rr
 from . import tracker
 from .bitwidth import BitwidthController
+from .coordinator import CommitContext
 from .incremental import IncrementalPolicy, make_policy
 from .integrity import ChunkCorruptionError, verify_chunk_bytes
 from .metrics import ManagerMetrics
@@ -119,8 +125,16 @@ class CheckpointConfig:
                                            # on a card, their plain versions
                                            # on "cpu"; "cuda" with no card
                                            # raises
-    num_hosts: int = 1                     # >1 (sharded multi-host writers)
-                                           # is not ported yet: raises
+    # ---- sharded multi-host writers (docs/sharded_writers.md) ----
+    num_hosts: int = 1                     # >1 → per-host shard writers with
+                                           # two-phase manifest commit
+    verify_shard_chunks: bool = True       # committing host re-checks every
+                                           # chunk's existence+size pre-commit
+    multiprocess: bool = False             # hosts as OS processes: not
+                                           # ported yet (ROADMAP A4), raises
+    commit_poll_s: float = 0.02            # phase-2 vote-poll interval
+    commit_timeout_s: float = 120.0        # give up on a quorum that never
+                                           # forms (a peer died pre-vote)
 
 
 @dataclasses.dataclass
@@ -153,6 +167,38 @@ class RestoredState:
     degraded_from: Optional[int] = None
 
 
+class PartialRecoveryError(ValueError):
+    """A shard-only recovery (:meth:`CheckNRunManager.restore_part`) cannot
+    proceed for this host/step — the shard chain is structurally or
+    physically unrecoverable on its own. Callers (the recovery supervisor,
+    ``Trainer.recover_host``) catch this and FALL BACK to a full
+    :meth:`restore`.
+
+    ``kind`` taxonomy:
+
+    * ``not-sharded`` — the checkpoint has no shard layout at all (pass
+      ``num_hosts=`` explicitly to range-read an unsharded chain anyway)
+    * ``bad-host`` — host index outside the target ``num_hosts``
+    * ``broken-chain`` — a chain manifest is unreadable/quarantined
+    * ``missing-part`` — a chain step's part manifest is gone AND its
+      chunk payload cannot be reconstructed from the global manifest
+      (a benign retention-reclaimed part does NOT raise — see
+      :meth:`CheckNRunManager.restore_part`)
+    * ``corrupt-chunk`` — a shard chunk failed integrity verification
+      or its blob is gone
+    """
+
+    def __init__(self, host: int, step: Optional[int], kind: str,
+                 detail: str = "") -> None:
+        self.host = host
+        self.step = step
+        self.kind = kind
+        self.detail = detail
+        super().__init__(
+            f"partial recovery of host {host} at step {step} "
+            f"unavailable ({kind}): {detail}")
+
+
 class _QuantClock:
     """Thread-safe accumulator for device quantize(+pack) seconds — the
     encode stage runs quantization on several workers, so per-chunk timings
@@ -179,11 +225,11 @@ class CheckNRunManager:
         config: CheckpointConfig,
         bitwidth: Optional[BitwidthController] = None,
     ) -> None:
-        if config.num_hosts > 1:
+        if config.multiprocess:
             raise NotImplementedError(
-                "sharded multi-host writers (num_hosts > 1) are not ported "
-                "to repro_torch yet; they come with the multi-host slice "
-                "(dist/*, remote_store, object_server)")
+                "multiprocess sharded saves (hosts as OS processes, "
+                "dist/host_proc.py) are not ported to repro_torch yet: "
+                "ROADMAP A4; num_hosts > 1 runs the hosts as threads")
         self.store = store
         self.config = config
         self.device = resolve_device(config.device)
@@ -440,6 +486,8 @@ class CheckNRunManager:
 
     # ------------------------------------------------------------- the write
     def _write(self, snap: Snapshot, cum, unc, cancel: threading.Event) -> SaveResult:
+        if self.config.num_hosts > 1:
+            return self._write_sharded(snap, cum, unc, cancel)
         t_start = time.monotonic()
         step = snap.step
         decision = self.policy.decide(step)
@@ -562,6 +610,103 @@ class CheckNRunManager:
                             gc_keys_reclaimed_total=sum(reclaimed.values()))
             self._gc_pending -= due
         self._aborted_steps.clear()
+
+    # ------------------------------------------------- sharded write (§3.4)
+    def _write_sharded(self, snap: Snapshot, cum, unc,
+                       cancel: threading.Event) -> SaveResult:
+        """Per-host shard writers + coordinator-less two-phase commit. Each
+        host (a thread here) runs its own WritePipeline over its row-shard,
+        votes with a part manifest, then polls the parts namespace — the
+        LAST host to observe all votes merges and commits the global
+        manifest itself (docs/sharded_writers.md). There is no coordinator
+        rank."""
+        from ..dist.shard_writer import HostShardWriter, run_host_writers
+
+        t_start = time.monotonic()
+        step = snap.step
+        cfg = self.config
+        decision = self.policy.decide(step)
+        qcfg = self._quant_config()
+        qcfg = qcfg.resolve() if qcfg is not None else None
+        deadline = (time.monotonic() + cfg.write_deadline_s
+                    if cfg.write_deadline_s else None)
+
+        # Overwriting a committed step in place is unsafe under any crash
+        # (hosts rewrite chunk blobs the live manifest references), so the
+        # sharded path refuses it loudly instead of risking a torn
+        # "committed" checkpoint. Checkpoint steps are monotone in every
+        # supported flow.
+        if self.store.exists(mf.manifest_key(step)):
+            raise ValueError(
+                f"step {step} already has a committed checkpoint; sharded "
+                f"saves never overwrite committed steps")
+        # Purge stale phase-1 votes from an earlier aborted attempt at this
+        # step: a leftover part manifest could otherwise satisfy the quorum
+        # for a host that dies during THIS attempt (same step/host/num_hosts
+        # stamps, same chunk sizes) and launder attempt-mixed state into a
+        # committed manifest. Votes are cheap to rewrite; stale chunk blobs
+        # are harmless (each vote only references chunks its own attempt
+        # durably wrote before voting).
+        for key in self.store.list(mf.part_prefix(step)):
+            self.store.delete(key)
+
+        prev = mf.latest_step(self.store)  # before commit, like single-host
+        base = (step if decision == "full" else self.policy.state.baseline_step)
+        # The commit context is computed ONCE per attempt and shared by
+        # every host, so all potential phase-2 committers build
+        # byte-identical manifests (the idempotence invariant).
+        ctx = CommitContext(
+            kind=decision, base_step=base, prev_step=prev,
+            quant=(dataclasses.asdict(qcfg) if qcfg else None),
+            policy=self.policy.to_dict() | {"name": self.policy.name},
+            extra=snap.extra | {"bitwidth": (self.bitwidth.to_dict()
+                                             if self.bitwidth else None)})
+
+        writers = [HostShardWriter(h, cfg.num_hosts, self.store, self,
+                                   cancel=cancel, deadline=deadline)
+                   for h in range(cfg.num_hosts)]
+        try:
+            run_host_writers(writers, snap, decision, qcfg, cum, unc,
+                             ctx=ctx,
+                             verify_chunks=cfg.verify_shard_chunks,
+                             commit_timeout_s=cfg.commit_timeout_s,
+                             commit_poll_s=cfg.commit_poll_s)
+        except mf.CommitRaceError:
+            # the protocol-violation tripwire (divergent manifest bytes)
+            # must NEVER be absorbed by the manifest-exists guard below —
+            # a manifest existing is this error's precondition
+            raise
+        except Exception:
+            if not self.store.exists(mf.manifest_key(step)):
+                raise
+            # a cancellation — or any host's transient phase-2 error —
+            # raced the last voter's commit: the manifest is durable, so
+            # the checkpoint IS valid. The store outranks the exception;
+            # re-raising here would report a committed save as failed and
+            # make the step permanently unsaveable (re-saves of committed
+            # steps are refused). (Commit implies all N votes of THIS
+            # attempt landed, so every writer's stats below are complete.)
+        # on the success path the last voter wrote the manifest before its
+        # poll returned, so loading it cannot miss
+        man = mf.load(self.store, step)
+
+        self._post_commit(step, decision, man.nbytes_total)
+        per_host = [w.stats for w in writers]
+        return SaveResult(
+            step=step, kind=decision, nbytes=man.nbytes_total,
+            # quantize_s is a subset of encode_busy_s (quant runs inside
+            # the encode stage), so it is NOT added on top
+            build_time_s=sum(s["encode_busy_s"] for s in per_host),
+            write_time_s=sum(s["write_busy_s"] for s in per_host),
+            pipeline_stats=dict(
+                num_hosts=cfg.num_hosts,
+                items=sum(s["items"] for s in per_host),
+                payload_bytes=sum(s["payload_bytes"] for s in per_host),
+                encode_busy_s=sum(s["encode_busy_s"] for s in per_host),
+                write_busy_s=sum(s["write_busy_s"] for s in per_host),
+                quantize_s=sum(s["quantize_s"] for s in per_host),
+                wall_s=time.monotonic() - t_start,
+                per_host=per_host))
 
     # ---------------------------------------------------------- encode stage
     def _encode_chunk_job(self, key: str, tab, idx, aux, qcfg, full, clock):
@@ -762,11 +907,196 @@ class CheckNRunManager:
 
     def restore_part(self, host: int, step: Optional[int] = None,
                      num_hosts: Optional[int] = None) -> RestoredState:
-        """Shard-only recovery of one host's rows: not ported yet."""
-        raise NotImplementedError(
-            "restore_part (shard-only partial recovery) is not ported to "
-            "repro_torch yet; it comes with the partial-recovery slice "
-            "(restore_part, splice_shard_state, Trainer.recover_host)")
+        """Lazily range-read ONE host's row-shard of a checkpoint: only the
+        chunks whose row bounds intersect the host's target ranges are
+        fetched (plus the final step's dense params, which are global).
+        Table arrays in the result cover just the host's row range;
+        ``extra["shard"]`` records the ranges (everything the train-side
+        splice — ``repro_torch.train.state.splice_shard_state`` — needs to
+        overwrite the shard's rows of a live TrainState).
+
+        Layout-independent (docs/resharding.md): the target layout is
+        ``num_hosts`` when given — ANY positive count, regardless of how
+        the chain was written — else the final manifest's recorded
+        layout. The range planner (``core/range_reader``) resolves the
+        minimal chunk set across the union of all source shards, so a
+        chain written at N hosts partial-restores onto N±k hosts; chunks
+        straddling a new shard boundary are clip-applied to the
+        intersecting rows. ``extra["shard"]["resharded"]`` flags reads
+        that crossed a layout change.
+
+        Structurally or physically unrecoverable shards raise
+        :class:`PartialRecoveryError` (typed, with a ``kind``); callers
+        fall back to a full :meth:`restore`. A chain step whose part
+        manifest was retention/GC-reclaimed but whose payload is intact
+        (the benign ``reclaimed-part`` classification in
+        ``core/integrity.py``) does NOT abort the replay — the global
+        manifest's merged chunk records, whose keys retain the
+        ``host_<h>/`` namespace, carry everything the planner needs.
+
+        A reader-side operation: does NOT resync the manager's policy or
+        touched-row bookkeeping (use :meth:`restore`, or the partial-
+        recovery splice path in ``repro_torch.train.loop``, to resume
+        training)."""
+        store = self.store
+        if step is None:
+            step = mf.latest_step(store)
+        if step is None:
+            raise FileNotFoundError("no valid checkpoint found")
+        t0 = time.monotonic()
+        try:
+            chain = mf.recovery_chain(store, step)
+        except (KeyError, FileNotFoundError, ValueError) as e:
+            raise PartialRecoveryError(
+                host, step, "broken-chain",
+                f"recovery chain unreadable: {e}") from e
+        final = chain[-1]
+        src_n = rr.layout_num_hosts(final)
+        tgt = num_hosts
+        if tgt is None:
+            tgt = (final.shards or {}).get("num_hosts")
+            if tgt is None:
+                raise PartialRecoveryError(
+                    host, step, "not-sharded",
+                    f"checkpoint {step} is not sharded; use restore(), or "
+                    f"pass num_hosts= to range-read it under a new layout")
+        if not 0 <= host < tgt:
+            raise PartialRecoveryError(
+                host, step, "bad-host",
+                f"host {host} out of range for {tgt} hosts")
+
+        targets = rr.shard_targets(final.tables, host, tgt)
+        try:
+            plan = rr.plan_ranges(chain, targets, check_coverage=True)
+        except rr.RangeCoverageError as e:
+            raise PartialRecoveryError(
+                host, step, "missing-part", str(e)) from e
+        self._check_shard_witness(chain, targets, host, step)
+        resharded = any(n != tgt for n in plan.source_layouts)
+
+        tables: Dict[str, np.ndarray] = {}
+        row_state: Dict[str, Dict[str, np.ndarray]] = {}
+        ranges: Dict[str, List[int]] = {}
+
+        def alloc(name: str, rec: mf.TableRecord):
+            # shard-sized scratch: planned chunks are clip-applied to rows
+            # in the target range, scattered at offset -lo — memory stays
+            # O(shard), not O(table)
+            lo, hi = targets.get(name, [0, rec.rows])
+            ranges[name] = [lo, hi]
+            return np.zeros((hi - lo, rec.dim), np.float32), lo
+
+        dense: Dict[str, np.ndarray] = {}
+        try:
+            stats = self._replay_plan(plan, tables, row_state, dense, alloc)
+        except ChunkCorruptionError as e:
+            self._count(corruption_errors_total=1)
+            raise PartialRecoveryError(
+                host, step, "corrupt-chunk", str(e)) from e
+        except (KeyError, FileNotFoundError) as e:
+            # a chunk blob the manifest references is gone (GC race,
+            # partial quarantine) — unrecoverable from this shard alone
+            raise PartialRecoveryError(
+                host, step, "corrupt-chunk",
+                f"shard chunk blob unreadable: {e}") from e
+        extra = dict(final.extra)
+        extra["shard"] = {"host": host, "num_hosts": tgt,
+                          "row_range": ranges, "resharded": resharded,
+                          "source_num_hosts": src_n,
+                          "source_layouts": [int(n)
+                                             for n in plan.source_layouts]}
+        rows_replayed = sum(pr.chunk.n_rows for pr in plan.reads)
+        kind_count = (dict(recoveries_resharded_total=1) if resharded
+                      else dict(recoveries_partial_total=1))
+        self._count(restore_bytes_total=int(stats.get("payload_bytes", 0)),
+                    recovery_rows_replayed_total=int(rows_replayed),
+                    last_recovery_wall_s=time.monotonic() - t0,
+                    last_recovery_host=host,
+                    last_recovery_source_hosts=src_n,
+                    last_recovery_target_hosts=int(tgt),
+                    **kind_count)
+        return RestoredState(step=final.step, tables=tables,
+                             row_state=row_state, dense=dense, extra=extra,
+                             chain_len=len(chain), stats=stats)
+
+    def _check_shard_witness(self, chain: List[mf.Manifest],
+                             targets: Dict[str, List[int]], host: int,
+                             step: int) -> None:
+        """Distinguish "this source host touched no rows" from "this source
+        host's chunk records are LOST". The planner treats a sharded chain
+        step with no chunks for some source host as a legitimately-empty
+        increment — but when that host's writer shard intersects the
+        target ranges, its durable part manifest is consulted as the
+        tie-breaker: part gone too (nothing reconstructable) or part
+        contradicting the global manifest ⇒ the shard data is gone ⇒
+        typed ``missing-part``, exactly the refusal the pre-planner
+        shard reader raised."""
+        for man in chain:
+            if not man.tables:
+                continue
+            src_n = rr.layout_num_hosts(man)
+            if src_n <= 1:
+                continue  # single-host chunks aren't host-namespaced
+            needed = set()
+            for name, rec in man.tables.items():
+                tgt_rng = targets.get(name)
+                if tgt_rng is None:
+                    continue
+                tlo, thi = tgt_rng
+                bounds = rr.row_shard_bounds(rec.rows, src_n)
+                for h, (lo, hi) in enumerate(bounds):
+                    if lo < hi and lo < thi and tlo < hi:
+                        needed.add(h)
+            recorded = {rr.host_of_chunk_key(ch.key)
+                        for rec in man.tables.values()
+                        for ch in rec.chunks}
+            for h in sorted(needed - recorded):
+                try:
+                    part = mf.load_part(self.store, man.step, h)
+                except (KeyError, FileNotFoundError) as e:
+                    raise PartialRecoveryError(
+                        host, step, "missing-part",
+                        f"chain step {man.step}: no chunks recorded for "
+                        f"source host {h} and its part manifest is "
+                        f"gone") from e
+                if any(r.chunks for r in part.tables.values()):
+                    raise PartialRecoveryError(
+                        host, step, "missing-part",
+                        f"chain step {man.step}: the global manifest "
+                        f"records no chunks for source host {h} but its "
+                        f"part manifest does — merged records damaged")
+
+    def resync_from(self, step: int) -> None:
+        """Resync the manager's incremental-policy and touched-row
+        bookkeeping to a committed step WITHOUT fetching any payload —
+        the partial-recovery exact path rolls survivors back from
+        in-memory state and replays only the failed shard, so the
+        payload-free half of :meth:`restore`'s resync needs to be callable
+        on its own."""
+        final = mf.load(self.store, step)
+        self.policy.load_dict(final.policy)
+        if self.bitwidth is not None and final.extra.get("bitwidth"):
+            self.bitwidth.load_dict(final.extra["bitwidth"])
+            self.bitwidth.on_restore()
+        with self._lock:
+            self._cum_touched = {}
+            self._uncommitted = {}
+
+    def refence_shard(self, ranges: Dict[str, List[int]]) -> None:
+        """Re-fence the touched-row tracker for a recovered shard: the
+        shard's rows now hold the last COMMITTED checkpoint's values, so
+        any since-last-commit touched bits for them are stale claims —
+        clear them (rows outside the shard keep their bits). The
+        since-last-FULL mask is left alone: relative to an older full
+        baseline the restored rows may still differ, and an incremental
+        save that skipped them would lose data; re-storing an unchanged
+        row is merely redundant."""
+        with self._lock:
+            for name, rng in ranges.items():
+                lo, hi = rng
+                m = self._uncommitted.get(name)
+                if m is not None and hi <= len(m):
+                    m[lo:hi] = False
 
     # ------------------------------------------------- streaming plan replay
     def _replay_plan(self, plan: "rr.RangePlan",

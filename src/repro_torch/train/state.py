@@ -204,6 +204,77 @@ def restore_train_state(template: TrainState, restored,
                       touched=touched, rng=rng)
 
 
+def splice_shard_state(state: TrainState, restored,
+                       specs: Dict[str, TrackedSpec]) -> TrainState:
+    """Overwrite ONLY one recovered shard's rows of a live TrainState.
+
+    ``restored`` is a ``CheckNRunManager.restore_part`` result: shard-sized
+    table/aux arrays plus ``extra["shard"]["row_range"]`` naming each
+    table's ``[lo, hi)``. Every row outside the ranges — including all of
+    the dense params/opt and the step/rng — keeps its LIVE value: this is
+    the CPR staleness model (only the failed shard rolls back to the
+    checkpoint) and the exact-mode shard splice (where the caller first
+    rebuilt the survivors from the boundary snapshot, so "live" already
+    means "at the committed step").
+
+    A new TrainState comes back and ``state`` is left as it was: a table,
+    accumulator or touched mask is cloned before rows are written into it
+    (the reference's functional ``.at[lo:hi].set``), so tensors the caller
+    still holds keep their live values.
+
+    The spliced rows' touched bits are re-fenced to False: they now hold
+    the last committed values, so a since-last-commit touched claim for
+    them is stale (the manager-side mask twin is
+    ``CheckNRunManager.refence_shard``). For coarse-tracked specs
+    (``expansion > 1``) only units FULLY COVERED by the range are
+    cleared: a resharded recovery's ranges need not be unit-aligned, and
+    a partial unit still carries live rows whose touched claim must
+    survive (re-storing an already-committed row is merely redundant;
+    losing a legitimate claim would drop data from the next increment).
+    """
+    shard = (restored.extra or {}).get("shard") or {}
+    ranges = shard.get("row_range") or {}
+    params = state.params
+    opt = state.opt_state
+    touched = dict(state.touched)
+    for name, spec in specs.items():
+        if name not in restored.tables or name not in ranges:
+            continue
+        lo, hi = ranges[name]
+        if lo >= hi:
+            continue  # an empty shard: nothing to overwrite or re-fence
+        params = tree_set(params, spec.path, _spliced(
+            tree_get(params, spec.path), spec.rows, lo, hi,
+            restored.tables[name]))
+        aux = restored.row_state.get(name, {})
+        opt_leaf = _find_opt_leaf(opt, spec.path)
+        if opt_leaf is not None and "opt_acc" in aux:
+            opt = tree_set(opt, spec.path, _spliced(
+                opt_leaf, spec.rows, lo, hi, aux["opt_acc"]))
+        elif opt_leaf is not None and "opt_acc2d" in aux:
+            opt = tree_set(opt, spec.path, _spliced(
+                opt_leaf, spec.rows, lo, hi, aux["opt_acc2d"]))
+        ulo = -(-lo // spec.expansion)  # ceil — first fully-covered unit
+        uhi = hi // spec.expansion      # floor — one past the last
+        if ulo < uhi:
+            mask = touched[name].clone()
+            mask[ulo:uhi] = False
+            touched[name] = mask
+    return TrainState(step=state.step, params=params, opt_state=opt,
+                      touched=touched, rng=state.rng)
+
+
+def _spliced(leaf: torch.Tensor, rows: int, lo: int, hi: int,
+             arr: np.ndarray) -> torch.Tensor:
+    """A copy of ``leaf`` whose rows ``[lo, hi)`` of its ``(rows, -1)`` view
+    hold host ``arr`` (cast to the leaf's dtype, on its device)."""
+    out = leaf.clone(memory_format=torch.contiguous_format)
+    flat = out.view(rows, -1)
+    flat[lo:hi] = torch.from_numpy(np.ascontiguousarray(arr)).reshape(
+        hi - lo, flat.shape[1]).to(device=out.device, dtype=out.dtype)
+    return out
+
+
 def _like(arr: np.ndarray, leaf: torch.Tensor) -> torch.Tensor:
     """A private tensor copy of host ``arr`` with ``leaf``'s dtype and device."""
     return torch.tensor(np.asarray(arr), device=leaf.device).to(leaf.dtype)
