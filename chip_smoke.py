@@ -32,6 +32,10 @@ Phases:
      one more training save by its delta alone. Its path runs
      ``embedding_bag`` (one launch a batch for all 26 fields) and
      ``dot_interaction``.
+     Then retrieval (``retrieval_cand``) on the restored params: one user
+     against 1,000,000 candidates a request, 30 requests after a warm-up,
+     each one ``embedding_bag`` launch (the user's 26 fields) and no
+     ``dot_interaction`` launch; the kernel path against the plain lookup.
   4b. sharded: dlrm-rm2 at phase 3's width and cap, saving through 4
      simulated hosts (per-host shard writers, threads of this process on
      the one card, and a coordinator-less two-phase commit): saves at
@@ -43,6 +47,21 @@ Phases:
      ``quant_pack`` and ``chunk_hash`` launches equal its chunks; then
      whether one training step repeated from the same state on the card
      gives the same bits.
+  4c. host processes: dlrm-rm2 at the same width and cap, saving through 4
+     OS processes (``multiprocess=True``; each its own CUDA context, its
+     chunks quantized and hashed by the kernels in that process, its launch
+     counts reported to the launcher) over an object server
+     (``python -m repro_torch.core.object_server``) on 127.0.0.1, reached
+     only through its ``http://`` URI: a full and an incremental save, each
+     byte for byte an in-process 4-host save of the same snapshot; a host
+     killed mid-save (``MultiprocessSaveError``, the last step restores); a
+     subscriber over the URI bit-equal to ``restore()``; the drill: the
+     next step saved by 4 processes with host 1 SIGKILLed mid-chunks, then
+     ``RecoverySupervisor.respawn`` of host 1 alone committing it; ``ckpt
+     scan``, ``ckpt recover --host 1 --device cuda`` and ``ckpt subscribe``
+     over the URI. Prints each save's wall time and its slowest host's,
+     the spill's seconds and bytes, each process's start-up, the bytes on
+     the wire.
 
   5. bert4rec at full width (1,000,448 items, dim 64, 2 blocks of 2 heads
      of 32, seq 200, d_ff 256, bf16 compute): the Trainer at batch 65,536
@@ -53,7 +72,11 @@ Phases:
      a warm-up batch and 3 timed), both blocks attending through
      ``flash_attention``'s tensor-core route (bf16), every launch of it; the scores through the kernel against the plain
      version; and the ``adaptive_quant`` op on the trained item table at 2,
-     3, 4 and 8 bits, its L2 error against uniform quantization's.
+     3, 4 and 8 bits, its L2 error against uniform quantization's; then
+     retrieval: one sequence against 1,000,000 candidates a request, 30
+     requests after a warm-up, 2 tensor-core ``flash_attention`` launches
+     each, against the plain attention and against ``serve`` on the first
+     100 candidates.
 
 Each path's launch counters are set to 0 just before it and read just
 after; every kernel of a path must have launched in it, and a kernel's
@@ -135,20 +158,29 @@ def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def kernel_ms(fn, name: str, reps: int = 30) -> float:
+def kernel_ms(fn, name: str, reps: int = 30, min_events=None):
     """Median device time of the kernels whose name contains ``name``, from
     a ``torch.profiler`` trace of ``reps`` calls of ``fn`` (after warm-up):
     unlike events around a call, it leaves out the host's launch overhead.
     A trace that does not hold one such kernel per call is taken again
-    (``_traced``)."""
+    (``_traced``). With ``min_events``, a trace that holds at least that
+    many will do (the median is of those it holds), and None says that no
+    trace did."""
     import torch
 
     def matching(prof):
         return [e.time_range.elapsed_us() for e in prof.events()
                 if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
 
-    prof = _traced(fn, reps, lambda p: len(matching(p)) == reps,
-                   lambda p: f"{len(matching(p))} {name} kernels for {reps} calls")
+    need = reps if min_events is None else min_events
+    prof = _traced(fn, reps, lambda p: need <= len(matching(p)) <= reps,
+                   lambda p: f"{len(matching(p))} {name} kernels for {reps} calls",
+                   required=min_events is None)
+    if prof is None:
+        return None
+    if len(matching(prof)) < reps:
+        log(f"profiler trace held {len(matching(prof))} {name} kernels for {reps} "
+            f"calls; their median taken")
     return statistics.median(matching(prof)) / 1e3
 
 
@@ -170,15 +202,15 @@ def device_ms(fn, reps: int = 20) -> float:
 RETAKEN_TRACES = [0]  # traces _traced has taken again so far in this run
 
 
-def _traced(fn, reps, ok, what, attempts=8):
+def _traced(fn, reps, ok, what, attempts=8, required=True):
     """A ``torch.profiler`` trace of ``reps`` calls of ``fn`` (after
     warm-up) of which ``ok(trace)`` holds; ``what(trace)`` says what a
     failed one held. A trace that fails ``ok`` is taken again after a
     pause (the profiler has been seen to drop one event of 20, in one run
     events of three traces in a row, and once to record no device event
-    at all); raises if the last of ``attempts`` fails too. Each retake is
-    counted in ``RETAKEN_TRACES``, which a kernel's entry in the result
-    line reports as ``retaken_traces``."""
+    at all); raises if the last of ``attempts`` fails too, or returns None
+    if not ``required``. Each retake is counted in ``RETAKEN_TRACES``, which
+    a kernel's entry in the result line reports as ``retaken_traces``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -195,7 +227,8 @@ def _traced(fn, reps, ok, what, attempts=8):
         log(f"profiler trace held {what(prof)}; again")
         RETAKEN_TRACES[0] += 1
         time.sleep(0.5)
-    check(False, f"profiler trace holds {what(prof)}")
+    check(not required, f"profiler trace holds {what(prof)}")
+    return None
 
 
 def bound(nbytes: float, instrs: dict):
@@ -645,7 +678,7 @@ def check_and_time_serve_kernels(gen, dev):
         return torch.stack([torch.randint(0, v, (B, H), generator=gen, device=dev)
                             for v in vocabs], dim=1).to(torch.int32)
 
-    for B in (512, 262144):
+    for B in (1, 512, 262144):  # 1: a retrieval request's user lookup
         check_eb(table, torch.randint(0, V, (B, 1), generator=gen, device=dev,
                                       dtype=torch.int32), exact=True)
         check_fields(tables, rand_ids(B, [V] * NF, 1))
@@ -852,8 +885,9 @@ def check_and_time_flash(gen, dev):
     shapes = [(2, 128, 128, 4, 2, 64, True, f32), (1, 256, 256, 8, 8, 32, False, f32),
               (2, 128, 128, 2, 1, 100, True, f32), (1, 192, 192, 4, 4, 64, True, f32),
               (1, 128, 128, 4, 2, 64, True, bf16), (2, 200, 200, 2, 2, 32, False, f32)]
-    shapes += [(b, 200, 200, 2, 2, 32, c, dt) for b in (512, B4R_SLICE) for c in (False, True)
-               for dt in (bf16, f32)]
+    # batch 1: a retrieval request's encode (a grid of 2 blocks)
+    shapes += [(b, 200, 200, 2, 2, 32, c, dt) for b in (1, 512, B4R_SLICE)
+               for c in (False, True) for dt in (bf16, f32)]
     shapes += [(3, 17, 17, 4, 1, 16, True, dt) for dt in (bf16, f32)]
     # the f32 route's other head widths, 8-key tails and keys past its
     # shared-memory budget (staged in chunks)
@@ -1053,6 +1087,24 @@ def _collect_saves(manager) -> list:
 
     manager.save = keep
     return saves
+
+
+def _save_walls_mp(saves):
+    """(whole-save seconds, slowest host process's seconds from spawn to
+    exit, seconds the trainer waited) of each kept multiprocess save. A
+    save submitted while the one before was still writing waits for it
+    (the non-overlap rule, which stalls training): it is timed from that
+    one's end, and the wait is reported."""
+    out, prev_done = [], 0.0
+    for entry in saves:
+        st = entry[0].result().pipeline_stats
+        while entry[2] is None:
+            time.sleep(0.001)
+        out.append((round(entry[2] - max(entry[1], prev_done), 3),
+                    round(max(h["proc_wall_s"] for h in st["per_host"]), 3),
+                    round(max(0.0, prev_done - entry[1]), 3)))
+        prev_done = entry[2]
+    return out
 
 
 def _save_walls(saves):
@@ -1341,7 +1393,112 @@ def phase_serve(kernels, root, trainer, device="cuda", reduced=False,
     return dict(first_answer_s=first_s, p50_ms=p50, p99_ms=p99_ms, bulk_rows_s=rows_s,
                 traced_ms=traced_ms, device_busy_ms=busy_ms,
                 serve_max_abs_dp=serve_err, sync_s=sync_s, sync_bytes=sync_bytes,
-                catchup_s=catchup_s, catchup_bytes=delta_bytes)
+                catchup_s=catchup_s, catchup_bytes=delta_bytes), params
+
+def _timed_requests(answer, batches):
+    """Answer ``batches[0]`` (warm-up), then each of the rest; returns the
+    first answer and the latencies in ms, sorted."""
+    first = answer(batches[0])
+    lat = []
+    for b in batches[1:]:
+        t1 = time.monotonic()
+        answer(b)
+        lat.append((time.monotonic() - t1) * 1e3)
+    return first, sorted(lat)
+
+
+def _batch1_times(kernels, name, kern, plain, symbol, bound_ms, bound_by, shape):
+    """Time a kernel at a retrieval request's shape (batch 1) beside its
+    plain version, into its entry in the kernel table as ``batch_1``. The
+    profiler drops most of these short kernels' events at times (5 of 30
+    in each of 8 retakes once): the median is of those a trace of 200
+    calls holds, at least 20, and a run whose traces never hold 20 reports
+    the kernel's time as not measured (None); the checks are elsewhere."""
+    k_ms = kernel_ms(kern, symbol, reps=200, min_events=20)
+    call_ms, p_ms = time_ms(kern), time_ms(plain)
+    entry = next(k for k in kernels if k["name"] == name)
+    entry["batch_1"] = dict(shape=shape, ms=k_ms, call_ms=call_ms, plain_ms=p_ms,
+                            bound_ms=bound_ms, bound_by=bound_by)
+    kernel = "not measured" if k_ms is None else f"{k_ms:.4f} ms"
+    log(f"{name} at batch 1 ({shape}): kernel {kernel} (profiler; one call "
+        f"between events {call_ms:.4f} ms), plain {p_ms:.4f} ms, bound "
+        f"{bound_ms:.6f} ms ({bound_by})")
+
+
+def phase_retrieval(kernels, params, device="cuda", reduced=False, requests=30):
+    """dlrm-rm2's ``retrieval_cand`` cell on phase 4's restored params: one
+    user (batch 1) against 1,000,000 candidates a request, ``requests``
+    timed after a warm-up. Each request is one ``embedding_bag`` launch
+    (the user's 26 fields) and no ``dot_interaction`` launch: the
+    reference computes a retrieval's dots with plain products."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_cell
+    from repro_torch.data.cells import batch_for_cell
+    from repro_torch.kernels.dot_interaction import ops as di
+    from repro_torch.kernels.embedding_bag import ops as eb
+    from repro_torch.models import dlrm
+    from repro_torch.train.loop import batch_to_device
+
+    cap = None if reduced else VOCAB_CAP
+    bundle = get_cell("dlrm-rm2", "retrieval_cand", reduced=reduced, device=device,
+                      vocab_cap=cap)
+    C = bundle.make_inputs()["candidate_ids"].shape[0]
+    check(reduced or C == 1_000_000, f"retrieval_cand scores {C} candidates")
+    batches = [batch_for_cell(bundle, 70_000 + i) for i in range(requests + 1)]
+
+    def answer(batch):
+        """One request: host arrays in, host probabilities out."""
+        return bundle.step_fn(params, batch_to_device(batch, bundle.device)).cpu().numpy()
+
+    if device == "cuda":
+        tabs = [params["tables"][f"emb_{f}"] for f in range(bundle.cfg.n_sparse)]
+        ids = torch.from_numpy(batches[0]["sparse_ids"]).to(device)
+        nbytes = len(tabs) * (tabs[0].shape[1] * 4 + 4 + tabs[0].shape[1] * 2)
+        _batch1_times(kernels, "embedding_bag",
+                      lambda: eb.embedding_bag_fields(tabs, ids),
+                      lambda: eb.embedding_bag_fields_torch(tabs, ids), "embedding_bag_kernel",
+                      nbytes / PEAK_BYTES_S * 1e3, "bytes", "(1, 26, 1) over 26 tables")
+    eb.LAUNCHES.reset()
+    di.LAUNCHES.reset()
+    first, lat = _timed_requests(answer, batches)
+    launches = {"embedding_bag": eb.LAUNCHES.count, "dot_interaction": di.LAUNCHES.count}
+    check(launches == {"embedding_bag": requests + 1, "dot_interaction": 0},
+          f"retrieval launches {launches}: one embedding_bag and no "
+          f"dot_interaction for each of {requests + 1} requests")
+    check(first.shape == (C,) and np.isfinite(first).all()
+          and ((first >= 0) & (first <= 1)).all(),
+          "retrieval probabilities finite, in [0, 1], one a candidate")
+    p50, p99 = lat[len(lat) // 2], lat[int(len(lat) * 0.99)]
+    b = batch_to_device(batches[0], bundle.device)
+    k = dlrm.serve_retrieval(params, b, bundle.cfg)
+    p = dlrm.serve_retrieval(params, b, bundle.cfg, bag=eb.embedding_bag_fields_torch)
+    err = float((k - p).abs().max())
+    # the dlrm-rm2 bf16 serve bar (tests/test_torch_serving.py)
+    check(err <= 1e-3, f"retrieval kernel path vs plain path: max |dp| {err}")
+    from torch.profiler import ProfilerActivity, profile
+
+    traced = batches[1:6]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.monotonic()
+        for bt in traced:
+            answer(bt)
+        traced_ms = (time.monotonic() - t1) * 1e3 / len(traced)
+    dev_ms, top = _device_split(prof, len(traced), {
+        "embedding_bag": ("embedding_bag",), "gemm": ("gemm", "nvjet", "xmma"),
+        "memcpy": ("memcpy",)})
+    busy_ms = sum(dev_ms.values())
+    out = dict(candidates=C, requests=requests, p50_ms=p50, p99_ms=p99,
+               candidates_per_s=C / (p50 / 1e3), max_abs_dp=err, launches=launches,
+               traced_ms=traced_ms, device_busy_ms=busy_ms,
+               device_idle_share=1 - busy_ms / traced_ms)
+    log(f"dlrm-rm2 retrieval: {json.dumps(out)}; device ms a request "
+        f"{json.dumps({k_: round(v, 4) for k_, v in dev_ms.items()})}; top kernels "
+        f"(ms) {json.dumps(top)}")
+    record_launches(kernels, "dlrm-rm2 retrieval", {"embedding_bag": launches["embedding_bag"]})
+    return out
+
 
 # ------------------------------------------------------------------ phase 4b
 
@@ -1559,14 +1716,272 @@ def phase_sharded(kernels, root, single_host=None, device="cuda", reduced=False)
     return out
 
 
+# ------------------------------------------------------------------ phase 4c
+
+MP_HOSTS = 4
+
+
+def _object_server(root):
+    """Start ``python -m repro_torch.core.object_server`` over a
+    LocalFSStore at ``root`` on 127.0.0.1; returns (process, uri)."""
+    import select
+
+    from repro_torch.dist import host_proc
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.core.object_server", "--root", root,
+         "--port", "0"], env=host_proc.child_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    ready, _, _ = select.select([proc.stdout], [], [], 120)
+    line = proc.stdout.readline() if ready else ""
+    if not line.startswith("LISTENING"):
+        proc.kill()
+        check(False, f"object server did not start: {line!r}")
+    _, host, port = line.split()
+    return proc, f"http://{host}:{port}"
+
+
+def _cli(uri, *argv, timeout=600):
+    """``python -m repro_torch.launch.ckpt`` over ``uri``: (exit code, text)."""
+    from repro_torch.dist import host_proc
+
+    p = subprocess.run([sys.executable, "-m", "repro_torch.launch.ckpt", argv[0],
+                        "--dir", uri, *argv[1:]], env=host_proc.child_env(),
+                       capture_output=True, text=True, timeout=timeout)
+    return p.returncode, p.stdout + p.stderr
+
+
+def _chunks_of(store, step):
+    return {k: store.get(k) for k in store.list(f"chunks/ckpt_{step:012d}/")}
+
+
+def phase_multiprocess(kernels, root, device="cuda", reduced=False):
+    """dlrm-rm2 at phase 4b's width and cap, saving through ``MP_HOSTS``
+    host processes on the one card (``multiprocess=True``), each its own
+    CUDA context, its chunks quantized and hashed by the kernels in that
+    process. The store is an object server on 127.0.0.1 over a LocalFSStore
+    in ``root``; the hosts reach it only through its ``http://`` URI. A
+    full and an incremental save, each byte for byte an in-process 4-host
+    save of the same snapshot; a host killed mid-save; the same step's
+    drill with a host killed mid-save and respawned alone; the CLI and a
+    subscriber over the URI. ``device`` and ``reduced`` let the phase be
+    rehearsed on the CPU at the reduced cell."""
+    import numpy as np
+
+    from repro_torch.configs import get_cell
+    from repro_torch.core import (CheckNRunManager, CheckpointConfig, CommitContext,
+                                  LocalFSStore, PAPER_DEFAULTS, make_store)
+    from repro_torch.core import manifest as mf
+    from repro_torch.dist import host_proc
+    from repro_torch.dist import recovery
+    from repro_torch.kernels.adaptive_quant import ops as aq
+    from repro_torch.kernels.chunk_hash import ops as ch
+    from repro_torch.serve import CheckpointSubscriber
+    from repro_torch.train.loop import Trainer, TrainerConfig
+
+    t_phase = time.monotonic()
+    H = MP_HOSTS
+    cap = None if reduced else VOCAB_CAP
+    bundle = get_cell("dlrm-rm2", "train_batch", reduced=reduced, device=device,
+                      vocab_cap=cap)
+    server_root, cmp_root = os.path.join(root, "server"), os.path.join(root, "inproc")
+    spill_dir = os.path.join(root, "spill")
+    os.makedirs(spill_dir)
+    srv, uri = _object_server(server_root)
+    disk = LocalFSStore(server_root)  # the server's files, read to verify
+    try:
+        store = make_store(uri)
+        ckpt = CheckpointConfig(interval_batches=2, policy="one_shot",
+                                quant=PAPER_DEFAULTS[4], keep_latest=10, device=device,
+                                num_hosts=H, multiprocess=True, spill_dir=spill_dir,
+                                heartbeat_s=0.5, commit_timeout_s=120.0,
+                                failfast_grace_s=2.0)
+        aq.LAUNCHES.reset()
+        ch.LAUNCHES.reset()
+        tr = Trainer(bundle, store, ckpt, TrainerConfig(total_steps=6, log_every=1))
+        saves = _collect_saves(tr.manager)
+        kept, save = {}, tr.manager.save
+
+        def keep(snap, block=False):
+            kept[snap.step] = snap
+            return save(snap, block)
+
+        tr.manager.save = keep
+        check(tr.init_or_restore() == 0, "fresh start over the URI")
+        tr.run(4)
+        tr.manager.wait()
+        check(mf.list_steps(store) == [2, 4], f"committed steps {mf.list_steps(store)}")
+        # the launcher trained; the host processes encoded
+        check(aq.LAUNCHES.count == 0 and ch.LAUNCHES.count == 0,
+              f"the launcher launched no encode kernel: {aq.LAUNCHES.count}, "
+              f"{ch.LAUNCHES.count}")
+        results = [f.result() for f, _, _ in saves]
+        walls = _save_walls_mp(saves)
+        figures, path_launches = {}, {"quant_pack": 0, "chunk_hash": 0}
+        for res, (wall, slowest, waited) in zip(results, walls):
+            st = res.pipeline_stats
+            man = mf.load(store, res.step)
+            n = sum(len(t.chunks) for t in man.tables.values())
+            hosts = st["per_host"]
+            check(st["exit_codes"] == [0] * H and all(h is not None for h in hosts),
+                  f"step {res.step}: every host exited 0 and reported: {st['exit_codes']}")
+            got = {k: sum(h["launches"][k] for h in hosts) for k in path_launches}
+            check(got == {"quant_pack": n, "chunk_hash": n},
+                  f"step {res.step}: the host processes' launches {got} == chunks {n}")
+            check(device != "cuda" or all(h["cuda_initialized"] for h in hosts),
+                  "each host process made its own CUDA context")
+            for k in path_launches:
+                path_launches[k] += got[k]
+            figures[res.step] = dict(
+                kind=man.kind, chunks=n, nbytes=man.nbytes_total, wall_s=wall,
+                slowest_host_s=slowest, trainer_waited_s=waited,
+                spill_s=round(st["spill_s"], 3),
+                spill_bytes=st["spill_bytes"],
+                import_s=[round(h["import_s"], 3) for h in hosts],
+                startup_s=[round(h["startup_s"], 3) for h in hosts],
+                host_pipeline_s=[round(h["pipeline"]["wall_s"], 3) for h in hosts],
+                launches=[h["launches"]["quant_pack"] for h in hosts],
+                wire_bytes=dict(sent=sum(h["wire"]["bytes_sent"] for h in hosts),
+                                received=sum(h["wire"]["bytes_received"] for h in hosts)))
+        check(figures[2]["kind"] == "full" and figures[4]["kind"] == "incremental",
+              f"a full and an incremental save: {figures}")
+
+        # (a) the same snapshots through an in-process 4-host save: the same
+        # chunk objects, key by key (the store format is the contract)
+        cmp_store = LocalFSStore(cmp_root)
+        cmp_cfg = dataclasses.replace(ckpt, multiprocess=False, async_write=False,
+                                      spill_dir=None, heartbeat_s=None)
+        cmp = CheckNRunManager(cmp_store, cmp_cfg)
+        for s_ in (2, 4):
+            cmp.save(kept[s_]).result()
+            a, b = _chunks_of(disk, s_), _chunks_of(cmp_store, s_)
+            check(a and a == b, f"step {s_}: {len(a)} chunk objects over HTTP from "
+                  f"{H} processes == the in-process save's {len(b)}, byte for byte")
+        cmp.close()
+
+        # (b) host 1 killed mid-save: the save raises, step 4 stays latest
+        # and restores; a subscriber over the URI matches restore() bitwise
+        tr.manager.config.proc_fault = "1:mid_chunks:3"
+        tr.run(2)
+        try:
+            tr.manager.wait()
+            check(False, "the save with a killed host raised")
+        except host_proc.MultiprocessSaveError as e:
+            failed = str(e).splitlines()[0]
+        tr.manager.config.proc_fault = None
+        check(mf.latest_step(store) == 4, f"step 4 stays latest: {mf.latest_step(store)}")
+        probe = CheckNRunManager(make_store(uri), CheckpointConfig(device=device))
+        t1 = time.monotonic()
+        r4 = probe.restore()
+        restore_s = time.monotonic() - t1
+        check(r4.step == 4 and r4.chain_len == 2, f"restored {r4.step}, chain {r4.chain_len}")
+        sub = CheckpointSubscriber(make_store(uri))
+        t1 = time.monotonic()
+        check(sub.poll_once() and sub.applied_step == 4, f"remote subscriber: {sub.health}")
+        sync_s = time.monotonic() - t1
+        with sub.server.pinned() as v:
+            for name, want in r4.tables.items():
+                check(v.tables()[name].tobytes() == want.tobytes(),
+                      f"{name}: the remote subscriber's table == restore() bit for bit")
+        del r4, sub
+
+        # (c) the drill: step 6 as a full save from its snapshot, host 1
+        # SIGKILLed mid-chunks; only host 1 is respawned, against the same
+        # spill, and completes the quorum the survivors' votes left
+        snap6, victim = kept[6], 1
+        for k in store.list(mf.part_prefix(6)):
+            store.delete(k)
+        qcfg = PAPER_DEFAULTS[4].resolve()
+        ctx = CommitContext(kind="full", base_step=6, prev_step=4,
+                            quant=dataclasses.asdict(qcfg), policy={"name": "full_only"},
+                            extra={"bitwidth": None})
+        spill = tempfile.mkdtemp(prefix="drill-", dir=spill_dir)
+        host_proc.write_spill(spill, snap6, {}, {}, dataclasses.replace(
+            ckpt, policy="full_only"), 6, H, ctx, True)
+        procs = []
+        t1 = time.monotonic()
+        for h in range(H):
+            with open(os.path.join(spill, f"log_{h}"), "wb") as log_f:
+                procs.append(subprocess.Popen(host_proc.host_command(
+                    uri, spill, h, fault="mid_chunks:3" if h == victim else None,
+                    heartbeat_s=0.5, commit_timeout_s=5.0, watch_parent=True),
+                    env=host_proc.child_env(), stdout=log_f, stderr=subprocess.STDOUT))
+        codes = [p.wait(timeout=600) for p in procs]
+        check(codes[victim] == -9 and all(c == 3 for h, c in enumerate(codes) if h != victim),
+              f"drill exit codes {codes}: the victim killed, the rest timed out")
+        check(not store.exists(mf.manifest_key(6))
+              and recovery.read_heartbeat(store, victim) is not None,
+              "step 6 not committed; the victim beat before it died")
+        sup = recovery.RecoverySupervisor(store, H)
+        check(victim in [f.host for f in sup.detect_failures(dict(enumerate(procs)))],
+              "the supervisor condemns the victim")
+        stats = [host_proc.load_host_stats(spill, h) for h in range(H)]
+        t2 = time.monotonic()
+        p = sup.respawn(uri, spill, victim, heartbeat_s=0.5, commit_timeout_s=120.0,
+                        log_path=os.path.join(spill, "respawn.log"))
+        check(p.wait(timeout=600) == 0 and mf.latest_step(store) == 6,
+              f"the respawned host 1 committed step 6: {mf.latest_step(store)}")
+        respawn_s = time.monotonic() - t2
+        drill_s = time.monotonic() - t1
+        stats[victim] = host_proc.load_host_stats(spill, victim)
+        man6 = mf.load(store, 6)
+        n6 = sum(len(t.chunks) for t in man6.tables.values())
+        got = {k: sum(st["launches"][k] for st in stats) for k in path_launches}
+        check(got == {"quant_pack": n6, "chunk_hash": n6},
+              f"the drill's reported launches {got} == step 6's chunks {n6} (the "
+              f"survivors' and the respawned host's)")
+        for k in path_launches:
+            path_launches[k] += got[k]
+        cmp = CheckNRunManager(cmp_store, dataclasses.replace(cmp_cfg, policy="full_only"))
+        cmp.save(snap6).result()
+        cmp.close()
+        a, b = _chunks_of(disk, 6), _chunks_of(cmp_store, 6)
+        check(a and a == b, f"step 6 after the respawn: {len(a)} chunk objects == the "
+              f"in-process save's, byte for byte")
+        shutil.rmtree(spill, ignore_errors=True)
+        del kept, snap6
+
+        # (d) the CLI over the URI
+        rc, out = _cli(uri, "scan")
+        check(rc == 0 and "all 3 step(s) clean" in out, f"ckpt scan: {rc} {out[-400:]}")
+        rc, out = _cli(uri, "recover", "--host", "1", "--device", device)
+        m = re.search(r"recovered host 1 \(partial\) at step 6 .* ([\d,]+) bytes fetched", out)
+        check(rc == 0 and m is not None, f"ckpt recover: {rc} {out[-400:]}")
+        fetched = int(m.group(1).replace(",", ""))
+        planned = recovery.shard_nbytes(store, 1, 6)
+        man_bytes = disk.size(mf.manifest_key(6))  # the chain is step 6 alone
+        check(fetched == planned + man_bytes,
+              f"ckpt recover fetched {fetched} B == host 1's shard {planned} B + "
+              f"step 6's manifest {man_bytes} B")
+        rc, out = _cli(uri, "subscribe")
+        check(rc == 0 and "serving step 6" in out, f"ckpt subscribe: {rc} {out[-400:]}")
+        tr.close()
+        probe.close()
+    finally:
+        srv.terminate()
+        srv.wait(timeout=30)
+    out = dict(phase_s=round(time.monotonic() - t_phase, 1), hosts=H, saves=figures,
+               stall_s=[round(x, 4) for x in tr.stall_times],
+               launches=path_launches, killed_save=failed,
+               restore_s=round(restore_s, 3), remote_subscriber_sync_s=round(sync_s, 3),
+               drill=dict(wall_s=round(drill_s, 3), respawn_s=round(respawn_s, 3),
+                          chunks=n6, exit_codes=codes),
+               cli_recover=dict(fetched_bytes=fetched, shard_bytes=planned,
+                                manifest_bytes=man_bytes))
+    log(f"multiprocess dlrm-rm2, {H} host processes over {uri}: {json.dumps(out)}")
+    record_launches(kernels, "dlrm-rm2 host processes", path_launches)
+    return out
+
+
 # ------------------------------------------------------------------ phase 5
 
 
 def phase_bert4rec(kernels, root, device="cuda", reduced=False, p99_batches=200,
-                   bulk_batches=4):
+                   bulk_batches=4, retrieval_requests=30):
     """bert4rec at full width: train through saves and a restore into
-    ``root``, serve from that chain through ``flash_attention``, and run the
-    ``adaptive_quant`` op on the trained item table. ``device`` and
+    ``root``, serve from that chain through ``flash_attention``, run the
+    ``adaptive_quant`` op on the trained item table, then retrieval (one
+    sequence against 1,000,000 candidates a request). ``device`` and
     ``reduced`` let the phase be rehearsed on the CPU at the reduced cell."""
     import numpy as np
     import torch
@@ -1807,9 +2222,52 @@ def phase_bert4rec(kernels, root, device="cuda", reduced=False, p99_batches=200,
     log(f"adaptive_quant on the trained item table ({tuple(trained.shape)}), num_bins "
         f"25, ratio 0.5, mean row L2: {json.dumps(l2)}")
     record_launches(kernels, "bert4rec serve", launches)
+
+    # (f) retrieval: one user's sequence against 1,000,000 candidates a
+    # request, on the served params
+    rbundle = get_cell("bert4rec", "retrieval_cand", reduced=reduced, device=device)
+    C = rbundle.make_inputs()["candidate_ids"].shape[0]
+    check(reduced or C == 1_000_000, f"retrieval_cand scores {C} candidates")
+    rbatches = [batch_for_cell(rbundle, 70_000 + i) for i in range(retrieval_requests + 1)]
+    if device == "cuda":
+        qkv = [torch.randn((1, 200, 2, 32), device=device).to(torch.bfloat16)
+               for _ in range(3)]
+        _batch1_times(kernels, "flash_attention",
+                      lambda: fa.flash_attention_cuda(*qkv, causal=False),
+                      lambda: fa.flash_attention_torch(*qkv, causal=False),
+                      "flash_kernel_mma", *flash_bound(1, 200, 200, 2, 32, 2),
+                      "(1, 200, 2, 32) bf16, not causal")
+    fa.MMA_LAUNCHES.reset()
+    fa.SIMT_LAUNCHES.reset()
+    first, rlat = _timed_requests(lambda b: answer(rbundle, params, b), rbatches)
+    r_launches = {"flash_attention": fa.MMA_LAUNCHES.count}
+    check(r_launches["flash_attention"] == 2 * (retrieval_requests + 1)
+          and fa.SIMT_LAUNCHES.count == 0,
+          f"retrieval flash launches {r_launches} on the tensor-core route == 2 "
+          f"blocks x {retrieval_requests + 1} requests, {fa.SIMT_LAUNCHES.count} f32")
+    check(first.shape == (C,) and np.isfinite(first).all(),
+          "retrieval scores finite, one a candidate")
+    r50, r99 = rlat[len(rlat) // 2], rlat[int(len(rlat) * 0.99)]
+    b = batch_to_device(rbatches[0], rbundle.device)
+    k_scores = bert4rec.serve_retrieval(params, b, rbundle.cfg)
+    p_scores = bert4rec.serve_retrieval(params, b, rbundle.cfg,
+                                        attention=fa.flash_attention_torch)
+    r_err = float((k_scores - p_scores).abs().max())
+    check(r_err <= 2e-2, f"retrieval kernel vs plain attention: max |ds| {r_err}")
+    # the same sequence and its first 100 candidates through serve: the
+    # encode is the same, only the last product's order differs
+    sub = dict(items=b["items"], candidate_ids=b["candidate_ids"][None, :100])
+    s_err = float((bert4rec.serve(params, sub, rbundle.cfg)[0] - k_scores[:100])
+                  .abs().max())
+    check(s_err <= 1e-4, f"retrieval vs serve on 100 candidates: max |ds| {s_err}")
+    retrieval = dict(candidates=C, requests=retrieval_requests, p50_ms=r50, p99_ms=r99,
+                     candidates_per_s=C / (r50 / 1e3), max_abs_ds=r_err,
+                     vs_serve_max_abs_ds=s_err, launches=r_launches)
+    log(f"bert4rec retrieval: {json.dumps(retrieval)}")
+    record_launches(kernels, "bert4rec retrieval", r_launches)
     return dict(step_s=step_s, peak_train_gb=peak_train_gb, first_answer_s=first_s,
                 p50_ms=p50, p99_ms=p99_ms, bulk_rows_s=rows_s, peak_bulk_gb=peak_bulk_gb,
-                serve_max_abs_ds=serve_err, l2=l2)
+                serve_max_abs_ds=serve_err, l2=l2, retrieval=retrieval)
 
 
 def main(argv=None) -> int:
@@ -1832,7 +2290,9 @@ def main(argv=None) -> int:
         single_host = {}
         try:
             trainer = phase_main_path(kernels, root, single_host)
-            phase_serve(kernels, root, trainer)
+            _, params = phase_serve(kernels, root, trainer)
+            phase_retrieval(kernels, params)
+            del params
         finally:
             if trainer is not None:
                 trainer.close()
@@ -1840,6 +2300,11 @@ def main(argv=None) -> int:
         root = tempfile.mkdtemp(prefix="cnr-chip-smoke-sharded-")
         try:
             phase_sharded(kernels, root, single_host)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        root = tempfile.mkdtemp(prefix="cnr-chip-smoke-mp-")
+        try:
+            phase_multiprocess(kernels, root)
         finally:
             shutil.rmtree(root, ignore_errors=True)
         root = tempfile.mkdtemp(prefix="cnr-chip-smoke-b4r-")

@@ -3,9 +3,9 @@
 A CellBundle is everything one cell needs: the step callable, the input
 specs, the tracked specs for Check-N-Run, the optimizer, and the device it
 all lives on. The train cells (dlrm-rm2's sparse DLRM step, bert4rec's
-generic step) and serve cells (``serve_p99``, ``serve_bulk``) of dlrm-rm2
-and bert4rec are ported; the retrieval cell and the other archs and
-families come with later slices.
+generic step), serve cells (``serve_p99``, ``serve_bulk``) and retrieval
+cell (``retrieval_cand``: one user against C candidates) of dlrm-rm2 and
+bert4rec are ported; the other archs and families come with later slices.
 """
 
 from __future__ import annotations
@@ -34,12 +34,13 @@ class InputSpec(NamedTuple):
 class CellBundle:
     arch: str
     shape: str
-    kind: str                       # train | serve
+    kind: str                       # train | serve | retrieval
     cfg: Any
     device: torch.device
     init: Callable                  # torch.Generator -> params
     step_fn: Callable               # train: (state, batch) -> (state, metrics)
                                     # serve: (params, batch) -> probs
+                                    # retrieval: (params, batch) -> (C,)
     make_inputs: Callable           # () -> {name: InputSpec}
     tracked: Dict[str, TrackedSpec]
     optimizer: Any
@@ -75,6 +76,15 @@ def _recsys_inputs(arch: str, cfg, B: int, kind: str, reduced: bool):
                 neg_ids=InputSpec((64 if reduced else 256,), np.int32))
 
 
+def _retrieval_inputs(arch: str, cfg, C: int, reduced: bool):
+    """The user's train stream keys at batch 1, labels dropped, then the C
+    candidate ids (the reference's retrieval override)."""
+    user = {k: InputSpec((1,) + v.shape[1:], v.dtype)
+            for k, v in _recsys_inputs(arch, cfg, 1, "train", reduced).items()
+            if k not in ("label", "labels", "mask", "neg_ids", "target")}
+    return dict(user, candidate_ids=InputSpec((C,), np.int32))
+
+
 def recsys_cell(arch: str, cfg, shape: str, reduced: bool = False,
                 device="cuda") -> CellBundle:
     spec = (S.RECSYS_SHAPES_REDUCED if reduced else S.RECSYS_SHAPES)[shape]
@@ -84,10 +94,6 @@ def recsys_cell(arch: str, cfg, shape: str, reduced: bool = False,
             f"({arch}, {shape}) is not ported yet: only "
             f"{sorted(_RECSYS_MODULES)} are; the other archs come with "
             f"ROADMAP A6")
-    if kind not in ("train", "serve"):
-        raise NotImplementedError(
-            f"({arch}, {shape}) is not ported yet: the {kind} cell "
-            f"(serve_retrieval) comes with ROADMAP A3")
     dev = resolve_device(device)
     mod = _RECSYS_MODULES[arch]
     B = spec["batch"]
@@ -102,9 +108,15 @@ def recsys_cell(arch: str, cfg, shape: str, reduced: bool = False,
         step_fn = make_train_step(
             lambda params, batch: mod.train_loss(params, batch, cfg), optimizer,
             n_micro=4 if (not reduced and B >= 65536) else 1)
-    else:
+    elif kind == "serve":
         step_fn = lambda params, batch: mod.serve(params, batch, cfg)
-    inputs = _recsys_inputs(arch, cfg, B, kind, reduced)
+    elif kind == "retrieval":
+        step_fn = lambda params, batch: mod.serve_retrieval(params, batch, cfg)
+    else:
+        raise ValueError(kind)
+    inputs = (_retrieval_inputs(arch, cfg, spec["n_candidates"], reduced)
+              if kind == "retrieval"
+              else _recsys_inputs(arch, cfg, B, kind, reduced))
 
     return CellBundle(
         arch=arch, shape=shape, kind=kind, cfg=cfg, device=dev,

@@ -1,6 +1,5 @@
-"""Assigned input-shape sets. The recsys shapes are ported; the
-``retrieval_cand`` cell is listed so that asking for it names its ROADMAP
-entry, and the other families come with later slices."""
+"""Assigned input-shape sets. The recsys shapes are ported; the other
+families come with later slices."""
 
 from __future__ import annotations
 

@@ -42,6 +42,20 @@ from .quantize import (
     uniform_quantize,
 )
 from .reader_protocol import ReaderLease, ReaderState
+from .remote_store import (
+    FatalTransportError,
+    FaultSpec,
+    FaultyTransport,
+    HttpTransport,
+    RemoteObjectStore,
+    RemoteStoreError,
+    RetriesExhaustedError,
+    RetryPolicy,
+    ServerTransport,
+    ThrottledTransport,
+    TransientTransportError,
+    make_store,
+)
 from .snapshot import Snapshot, take_snapshot
 from .storage import (
     CheckpointCancelled,

@@ -22,10 +22,10 @@ a store written by either package restores in the other. With
 ``num_hosts > 1`` each save goes through per-host shard writers, threads
 of this process that each run their own encode→write pipeline over one
 row-shard, and a coordinator-less two-phase commit
-(``repro_torch.dist.shard_writer``); ``restore_part`` replays one host's
-shard alone (partial recovery and resharding). Hosts as separate OS
-processes (``multiprocess=True``) are not ported yet and raise
-``NotImplementedError`` (ROADMAP A4).
+(``repro_torch.dist.shard_writer``); with ``multiprocess=True`` each host
+is its own OS process (``repro_torch.dist.host_proc``), which quantizes
+and hashes its chunks on ``config.device`` itself. ``restore_part``
+replays one host's shard alone (partial recovery and resharding).
 
 Write-path threading model (see docs/write_path.md):
 
@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 import threading
 import time
 import traceback
@@ -130,11 +131,34 @@ class CheckpointConfig:
                                            # two-phase manifest commit
     verify_shard_chunks: bool = True       # committing host re-checks every
                                            # chunk's existence+size pre-commit
-    multiprocess: bool = False             # hosts as OS processes: not
-                                           # ported yet (ROADMAP A4), raises
+    multiprocess: bool = False             # num_hosts>1: real OS processes
+                                           # over a LocalFSStore root or a
+                                           # remote store URI (multi-pod, no
+                                           # shared FS) instead of
+                                           # thread-simulated hosts
+    spill_dir: Optional[str] = None        # scratch dir for multiprocess
+                                           # snapshot spills (default: tmp)
+    batch_fsync: bool = False              # LocalFSStore: defer chunk dirent
+                                           # fsyncs to the pre-vote flush
+                                           # (same crash-safety point)
+    remote_fault: Optional[str] = None     # test-only: seeded FaultSpec
+                                           # ("k=v,k=v") injected under each
+                                           # host process's remote transport
+    proc_fault: Optional[str] = None       # test-only: "host:point" SIGKILLs
+                                           # that host process at a protocol
+                                           # point (host_proc --fault) during
+                                           # multiprocess saves
+    heartbeat_s: Optional[float] = None    # host processes publish liveness
+                                           # keys (heartbeats/host_<h>.json)
+                                           # at this period; the recovery
+                                           # supervisor reads them
+                                           # (docs/partial_recovery.md)
     commit_poll_s: float = 0.02            # phase-2 vote-poll interval
     commit_timeout_s: float = 120.0        # give up on a quorum that never
                                            # forms (a peer died pre-vote)
+    failfast_grace_s: float = 10.0         # after a host process dies, how
+                                           # long surviving hosts may still
+                                           # finish phase 2 before SIGTERM
 
 
 @dataclasses.dataclass
@@ -225,11 +249,6 @@ class CheckNRunManager:
         config: CheckpointConfig,
         bitwidth: Optional[BitwidthController] = None,
     ) -> None:
-        if config.multiprocess:
-            raise NotImplementedError(
-                "multiprocess sharded saves (hosts as OS processes, "
-                "dist/host_proc.py) are not ported to repro_torch yet: "
-                "ROADMAP A4; num_hosts > 1 runs the hosts as threads")
         self.store = store
         self.config = config
         self.device = resolve_device(config.device)
@@ -615,7 +634,8 @@ class CheckNRunManager:
     def _write_sharded(self, snap: Snapshot, cum, unc,
                        cancel: threading.Event) -> SaveResult:
         """Per-host shard writers + coordinator-less two-phase commit. Each
-        host (a thread here) runs its own WritePipeline over its row-shard,
+        host (a thread here; its own OS process with ``multiprocess=True``)
+        runs its own WritePipeline over its row-shard,
         votes with a part manifest, then polls the parts namespace — the
         LAST host to observe all votes merges and commits the global
         manifest itself (docs/sharded_writers.md). There is no coordinator
@@ -662,6 +682,11 @@ class CheckNRunManager:
             extra=snap.extra | {"bitwidth": (self.bitwidth.to_dict()
                                              if self.bitwidth else None)})
 
+        if cfg.multiprocess:
+            return self._write_sharded_multiprocess(
+                snap, cum, unc, cancel, decision, qcfg, ctx, t_start,
+                deadline)
+
         writers = [HostShardWriter(h, cfg.num_hosts, self.store, self,
                                    cancel=cancel, deadline=deadline)
                    for h in range(cfg.num_hosts)]
@@ -707,6 +732,219 @@ class CheckNRunManager:
                 quantize_s=sum(s["quantize_s"] for s in per_host),
                 wall_s=time.monotonic() - t_start,
                 per_host=per_host))
+
+    # ------------------------------------- multiprocess hosts (real OS procs)
+    def _write_sharded_multiprocess(self, snap: Snapshot, cum, unc,
+                                    cancel: threading.Event, decision: str,
+                                    qcfg, ctx: CommitContext,
+                                    t_start: float,
+                                    deadline: Optional[float]
+                                    ) -> SaveResult:
+        """Spawn one OS process per host (``repro_torch.dist.host_proc``)
+        over the shared LocalFSStore root (or remote store URI) and await
+        the committed manifest. The
+        STORE is the source of truth: the save succeeded iff the global
+        manifest exists once every host process has exited — child exit
+        codes only feed diagnostics (a SIGKILLed host does not un-commit a
+        manifest its peers already wrote). ``write_deadline_s`` is enforced
+        on both sides: each child's pipeline aborts at the deadline, and
+        the parent SIGTERMs wedged children past it (backstop)."""
+        import shutil
+        import subprocess
+        import tempfile
+
+        from ..dist import host_proc
+
+        cfg = self.config
+        step = snap.step
+        if isinstance(self.store, LocalFSStore):
+            store_arg = self.store.root
+        else:
+            # multi-pod: hosts share no filesystem — they reach the store
+            # by URI (http://host:port → RemoteObjectStore). Chunks, votes
+            # and the phase-2 commit all run over remote keys.
+            store_arg = getattr(self.store, "uri", None)
+            if not store_arg or not store_arg.startswith("http://"):
+                raise ValueError(
+                    "multiprocess sharded saves need a LocalFSStore or a "
+                    "remote store with a network-reachable URI; got "
+                    f"{type(self.store).__name__} "
+                    f"(uri={store_arg!r})")
+
+        spill = tempfile.mkdtemp(prefix=f"cnr-spill-{step}-",
+                                 dir=cfg.spill_dir)
+        procs: List[Tuple[Any, Any]] = []
+        spawned_unix: List[float] = []
+        try:
+            t_spill = time.monotonic()
+            host_proc.write_spill(spill, snap, cum, unc, cfg, step,
+                                  cfg.num_hosts, ctx,
+                                  cfg.verify_shard_chunks)
+            spill_s = time.monotonic() - t_spill
+            spill_bytes = sum(e.stat().st_size for e in os.scandir(spill))
+            env = host_proc.child_env()
+            fault_host, fault_point = -1, None
+            if cfg.proc_fault:
+                fh, fault_point = cfg.proc_fault.split(":", 1)
+                fault_host = int(fh)
+            fence_epochs = [0] * cfg.num_hosts
+            if cfg.heartbeat_s is not None:
+                # replacement processes after a recovery must beat at the
+                # CURRENT fence epoch — at the old epoch the heartbeat
+                # writer would see itself fenced and exit(4) immediately
+                from ..dist.recovery import read_fence
+                fence_epochs = [read_fence(self.store, h)
+                                for h in range(cfg.num_hosts)]
+            for h in range(cfg.num_hosts):
+                cmd = host_proc.host_command(
+                    store_arg, spill, h,
+                    fault=fault_point if h == fault_host else None,
+                    heartbeat_s=cfg.heartbeat_s,
+                    heartbeat_epoch=fence_epochs[h],
+                    net_fault=cfg.remote_fault,
+                    batch_fsync=cfg.batch_fsync,
+                    poll_interval_s=cfg.commit_poll_s,
+                    commit_timeout_s=cfg.commit_timeout_s,
+                    # absolute epoch: the child's interpreter boot spends
+                    # the deadline budget, it does not extend it
+                    deadline_unix=(time.time()
+                                   + (deadline - time.monotonic())
+                                   if deadline is not None else None),
+                    watch_parent=True)
+                log = open(os.path.join(spill, f"host_{h:04d}.log"), "wb")
+                try:
+                    spawned_unix.append(time.time())
+                    p = subprocess.Popen(cmd, env=env, stdout=log,
+                                         stderr=subprocess.STDOUT)
+                except BaseException:
+                    log.close()
+                    raise
+                procs.append((p, log))
+            codes, expired = self._await_host_procs(
+                [p for p, _ in procs], cancel, step, deadline)
+            # each process's kernel launches and timings: its counters live
+            # in its own address space, so it leaves them in the spill
+            per_host = [host_proc.load_host_stats(spill, h)
+                        for h in range(cfg.num_hosts)]
+            for st, t0 in zip(per_host, spawned_unix):
+                if st is not None:
+                    st["import_s"] = st["main_unix"] - t0
+                    st["startup_s"] = st["ready_unix"] - t0
+                    st["proc_wall_s"] = st["done_unix"] - t0
+
+            if 5 in codes:
+                # a host detected divergent manifest bytes
+                # (CommitRaceError, exit 5): the determinism invariant
+                # was violated — surface it even though a manifest
+                # exists, never report success over it
+                raise mf.CommitRaceError(
+                    f"step {step}: a host process reported divergent "
+                    f"manifest bytes (exit codes: {codes})")
+            if not self.store.exists(mf.manifest_key(step)):
+                if cancel.is_set() or expired:
+                    raise CheckpointCancelled(
+                        f"multiprocess save step {step}")
+                err = host_proc.MultiprocessSaveError(
+                    f"step {step}: no host committed the manifest "
+                    f"(exit codes: {codes})")
+                for h in range(len(procs)):
+                    tail = self._read_log_tail(
+                        os.path.join(spill, f"host_{h:04d}.log"))
+                    if tail:
+                        err.args = (err.args[0]
+                                    + f"\n-- host {h} log tail --\n" + tail,)
+                raise err
+        except BaseException:
+            # a mid-spawn failure (fork EAGAIN, unwritable log, ...) must
+            # not leave already-launched hosts writing to the shared store
+            # (no-op for hosts that already exited)
+            self._terminate_procs([p for p, _ in procs])
+            raise
+        finally:
+            for _, log in procs:
+                log.close()
+            # the spill is a full O(snapshot) copy — never strand it, on
+            # any path (log tails are read above, before this runs)
+            shutil.rmtree(spill, ignore_errors=True)
+
+        man = mf.load(self.store, step)
+        self._post_commit(step, decision, man.nbytes_total)
+        return SaveResult(
+            step=step, kind=decision, nbytes=man.nbytes_total,
+            build_time_s=0.0, write_time_s=0.0,
+            pipeline_stats=dict(num_hosts=cfg.num_hosts, multiprocess=True,
+                                exit_codes=codes,
+                                wall_s=time.monotonic() - t_start,
+                                spill_s=spill_s, spill_bytes=spill_bytes,
+                                per_host=per_host))
+
+    @staticmethod
+    def _read_log_tail(path: str, nbytes: int = 2048) -> str:
+        try:
+            with open(path, "rb") as f:
+                f.seek(0, os.SEEK_END)
+                f.seek(max(0, f.tell() - nbytes))
+                return f.read().decode(errors="replace").strip()
+        except OSError:
+            return ""
+
+    @staticmethod
+    def _terminate_procs(procs) -> List[Optional[int]]:
+        """SIGTERM every live host process and REAP it (SIGKILL escalation
+        after 10 s, then a final wait so no zombie survives and exit codes
+        are real, not None)."""
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=10.0)
+            except Exception:
+                p.kill()
+                try:
+                    p.wait(timeout=10.0)
+                except Exception:  # pragma: no cover - unkillable child
+                    pass
+        return [p.poll() for p in procs]
+
+    def _await_host_procs(self, procs, cancel: threading.Event, step: int,
+                          deadline: Optional[float]
+                          ) -> Tuple[List[Optional[int]], bool]:
+        """Await every host process; returns (exit codes, deadline
+        expired). Fail-fast policy: once any host dies abnormally,
+        surviving hosts get ``failfast_grace_s`` to finish phase 2 (if the
+        victim died after voting, a peer commits within a poll interval),
+        then are SIGTERMed — terminating a polling or mid-merge host is
+        safe, the manifest put is atomic. A set ``cancel`` event terminates
+        all hosts immediately (§3.3); ``deadline`` (+ grace, children
+        enforce it themselves first) is the wedged-child backstop."""
+        grace = self.config.failfast_grace_s
+        grace_until = None
+        commit_grace_until = None
+        while True:
+            codes = [p.poll() for p in procs]
+            if all(c is not None for c in codes):
+                return codes, False
+            if cancel.is_set():
+                return self._terminate_procs(procs), False
+            if deadline is not None and time.monotonic() >= deadline + grace:
+                return self._terminate_procs(procs), True
+            committed = self.store.exists(mf.manifest_key(step))
+            if committed:
+                # checkpoint durable — healthy hosts observe the manifest
+                # within a poll interval and exit; a host wedged past that
+                # (stalled disk mid-fsync) must not hang save() forever
+                if commit_grace_until is None:
+                    commit_grace_until = time.monotonic() + grace
+                elif time.monotonic() >= commit_grace_until:
+                    return self._terminate_procs(procs), False
+            failed = any(c not in (None, 0) for c in codes)
+            if failed and not committed:
+                if grace_until is None:
+                    grace_until = time.monotonic() + grace
+                elif time.monotonic() >= grace_until:
+                    return self._terminate_procs(procs), False
+            time.sleep(0.02)
 
     # ---------------------------------------------------------- encode stage
     def _encode_chunk_job(self, key: str, tab, idx, aux, qcfg, full, clock):

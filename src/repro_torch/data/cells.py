@@ -2,7 +2,7 @@
 ``bundle.make_inputs()`` exactly, values come from the deterministic
 synthetic streams, and for the same ``(cell, batch_idx, seed)`` the batch is
 the reference's (``src/repro/data/cells.py``) array for array. The dlrm-rm2 and
-bert4rec train and serve cells are ported so far."""
+bert4rec train, serve and retrieval cells are ported so far."""
 
 from __future__ import annotations
 
@@ -30,6 +30,18 @@ def batch_for_cell(bundle: CellBundle, batch_idx: int, seed: int = 0) -> Dict[st
         if kind == "train":
             out["label"] = b["label"]
         return out
+    if arch == "dlrm-rm2" and kind == "retrieval":
+        b = syn.recsys_batch(syn.RecsysStreamConfig(
+            batch=1, n_dense=getattr(cfg, "n_dense", 0),
+            n_sparse=cfg.n_sparse, vocab_sizes=cfg.vocab_sizes,
+            multi_hot=cfg.multi_hot, seed=seed), batch_idx)
+        C = specs["candidate_ids"].shape[0]
+        # candidates stand in for field 0, so they are drawn over its table
+        out = dict(sparse_ids=b["sparse_ids"],
+                   candidate_ids=syn.zipf_like(rng, cfg.vocab_sizes[0], C).astype(np.int32))
+        if "dense" in specs:
+            out["dense"] = b["dense"]
+        return out
     if arch == "bert4rec" and kind == "train":
         B = specs["items"].shape[0]
         b = syn.seqrec_batch(syn.SeqRecStreamConfig(
@@ -43,4 +55,9 @@ def batch_for_cell(bundle: CellBundle, batch_idx: int, seed: int = 0) -> Dict[st
         C = specs["candidate_ids"].shape[1]
         return dict(items=items,
                     candidate_ids=(syn.zipf_like(rng, cfg.n_items - 1, (B, C)) + 1).astype(np.int32))
+    if arch == "bert4rec" and kind == "retrieval":
+        items = (syn.zipf_like(rng, cfg.n_items - 1, (1, cfg.seq_len)) + 1).astype(np.int32)
+        C = specs["candidate_ids"].shape[0]
+        return dict(items=items,
+                    candidate_ids=(syn.zipf_like(rng, cfg.n_items - 1, (C,)) + 1).astype(np.int32))
     raise ValueError(f"no batch generator for ({arch}, {kind})")

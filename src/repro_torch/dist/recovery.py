@@ -1,8 +1,8 @@
 """Partial-recovery supervisor: detect a failed host, replay ONE shard,
 in PyTorch.
 
-The failure model (docs/partial_recovery.md): a training job runs N hosts,
-each owning a contiguous row-shard of every embedding table
+The failure model (docs/partial_recovery.md): a training job runs N host
+processes, each owning a contiguous row-shard of every embedding table
 (``row_shard_bounds``). When one host dies — SIGKILL, OOM, machine loss —
 its in-memory shard (table rows, optimizer slots, touched bits) is gone,
 but the survivors' shards and the job's dense state are intact. Restoring
@@ -12,24 +12,22 @@ costs O(shard).
 
 Three cooperating pieces:
 
-* **Heartbeats** — hosts publish liveness keys
+* **Heartbeats** — host processes publish liveness keys
   (``heartbeats/host_<h>.json``) in the object store itself: the store is
   the one medium every participant already shares (multi-pod launches have
-  no common filesystem). :class:`HeartbeatWriter` runs in the host.
+  no common filesystem). :class:`HeartbeatWriter` runs in the host
+  process (wired in ``dist.host_proc`` via ``--heartbeat``).
 * **Fencing** — before its shard is replayed, the failed host is fenced
   by bumping ``heartbeats/fence_host_<h>.json``. A zombie host (paused,
   not dead) observes the fence epoch on its next beat and exits rather
-  than keep writing chunks a recovered replacement now owns. Cooperative:
-  it bounds a zombie's damage to one heartbeat period.
+  than keep writing chunks a recovered replacement now owns. Cooperative,
+  like the parent watchdog: it bounds a zombie's damage to one heartbeat
+  period.
 * **Detection + recovery** — :class:`RecoverySupervisor` combines
   process exit codes (authoritative when the supervisor launched the
   host) with heartbeat staleness (the only signal for hosts on other
   machines), then recovers the shard via ``restore_part`` with automatic
   fallback to a full ``restore()`` on :class:`PartialRecoveryError`.
-
-Relaunching host processes (``respawn``, ``respawn_resharded``) needs the
-multi-process host module, which is not ported yet (ROADMAP A4): both
-raise ``NotImplementedError``.
 
 The train-side splice (overwrite only the recovered rows of a live
 ``TrainState``, re-fence touched/optimizer state, resume under an
@@ -41,6 +39,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import subprocess
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -270,25 +269,96 @@ class RecoverySupervisor:
         return rs
 
     # -------------------------------------------------------------- respawn
-    def respawn(self, store_arg: str, spill_dir: str, host: int,
-                **host_kwargs) -> Any:
-        """Relaunch ONE failed host process against the same spill: not
-        ported yet. It spawns the multi-process host module, which comes
-        with ROADMAP A4."""
-        raise NotImplementedError(
-            "respawn spawns a host process (dist/host_proc.py), which is not "
-            "ported to repro_torch yet: ROADMAP A4")
+    def respawn(self, store_arg: str, spill_dir: str, host: int, *,
+                heartbeat_s: Optional[float] = None,
+                poll_interval_s: float = 0.02,
+                commit_timeout_s: float = 120.0,
+                log_path: Optional[str] = None,
+                **host_kwargs) -> subprocess.Popen:
+        """Relaunch ONE failed host process against the same spill — the
+        survivors' durable phase-1 votes still stand, so a respawned
+        victim that rewrites its chunks and votes can complete the
+        aborted save's quorum by itself (no survivor restarts). The
+        replacement heartbeats at the post-fence epoch so the supervisor
+        trusts it over any zombie."""
+        from . import host_proc
+
+        cmd = host_proc.host_command(
+            store_arg, spill_dir, host,
+            heartbeat_s=heartbeat_s,
+            heartbeat_epoch=read_fence(self.store, host),
+            poll_interval_s=poll_interval_s,
+            commit_timeout_s=commit_timeout_s,
+            **host_kwargs)
+        log = open(log_path, "wb") if log_path else subprocess.DEVNULL
+        try:
+            return subprocess.Popen(cmd, env=host_proc.child_env(),
+                                    stdout=log, stderr=subprocess.STDOUT)
+        finally:
+            if log_path:
+                log.close()
 
     def respawn_resharded(self, store_arg: str, spill_dir: str,
-                          new_num_hosts: int, **host_kwargs
-                          ) -> Dict[int, Any]:
+                          new_num_hosts: int, *,
+                          heartbeat_s: Optional[float] = None,
+                          poll_interval_s: float = 0.02,
+                          commit_timeout_s: float = 120.0,
+                          log_dir: Optional[str] = None,
+                          **host_kwargs) -> Dict[int, subprocess.Popen]:
         """Relaunch the WHOLE job at a new host count against the same
-        spill: not ported yet, for the same reason as :meth:`respawn`
-        (ROADMAP A4). A committed chain already range-reads under any
-        layout through ``restore_part(..., num_hosts=)``."""
-        raise NotImplementedError(
-            "respawn_resharded spawns host processes (dist/host_proc.py), "
-            "which are not ported to repro_torch yet: ROADMAP A4")
+        spill (docs/resharding.md): the spill's full-table arrays are
+        layout-independent (each host mmaps only its shard's rows), so an
+        aborted N-host save completes as an N±k-host save. Steps taken,
+        in order:
+
+        1. refuse if the spill's step already committed — nothing to
+           complete; a fresh run should ``restore_part(..., num_hosts=)``
+           under the new layout instead;
+        2. fence every host of BOTH layouts (``max(old, new)``): zombies
+           from the old incarnation must not write or vote under the new
+           one;
+        3. purge the aborted attempt's durable votes — an old-layout part
+           manifest would otherwise count toward the new quorum with
+           wrong-shard contents (old CHUNK debris is harmless: it is
+           either overwritten key-for-key or left unreferenced by the
+           committed manifest);
+        4. rewrite the spill's recorded layout and launch all
+           ``new_num_hosts`` replacements, each heartbeating at its
+           post-fence epoch.
+        """
+        from . import host_proc
+
+        step, old_n, _, _ = host_proc.load_commit(spill_dir)
+        if self.store.exists(mf.manifest_key(step)):
+            raise RuntimeError(
+                f"step {step} is already committed; reshard by restoring "
+                f"under the new layout (restore_part(..., num_hosts=)) "
+                f"instead of respawning the save")
+        self.fence_layout(max(old_n, new_num_hosts))
+        for key in list(self.store.list(mf.part_prefix(step))):
+            self.store.delete(key)
+        host_proc.rewrite_spill_layout(spill_dir, new_num_hosts)
+        self.num_hosts = new_num_hosts
+        procs: Dict[int, subprocess.Popen] = {}
+        for h in range(new_num_hosts):
+            cmd = host_proc.host_command(
+                store_arg, spill_dir, h,
+                heartbeat_s=heartbeat_s,
+                heartbeat_epoch=read_fence(self.store, h),
+                poll_interval_s=poll_interval_s,
+                commit_timeout_s=commit_timeout_s,
+                **host_kwargs)
+            log_path = (os.path.join(log_dir, f"host_{h}.log")
+                        if log_dir else None)
+            log = open(log_path, "wb") if log_path else subprocess.DEVNULL
+            try:
+                procs[h] = subprocess.Popen(cmd, env=host_proc.child_env(),
+                                            stdout=log,
+                                            stderr=subprocess.STDOUT)
+            finally:
+                if log_path:
+                    log.close()
+        return procs
 
 
 def shard_nbytes(store: ObjectStore, host: int, step: int,

@@ -1,8 +1,9 @@
 """Per-host shard writers for sharded multi-host checkpointing (§3.4), in
 PyTorch.
 
-Each simulated host — a thread of the saving process — owns a contiguous
-row-shard of every embedding table
+Each host — a thread in the simulated path, its own OS process under
+``repro_torch.dist.host_proc`` — owns a contiguous row-shard of every
+embedding table
 (``repro_torch.dist.sharding.row_shard_bounds``) and runs its OWN
 :class:`~repro_torch.core.pipeline.WritePipeline` over that shard: encode
 workers, upload workers, bounded in-flight window — exactly the
@@ -12,8 +13,7 @@ drains, the host publishes its part manifest (phase-1 vote, see
 ``repro_torch.core.coordinator``), then enters phase 2 itself: it polls the
 parts namespace and the LAST host to observe all votes performs the merge
 and writes the global manifest (:func:`poll_votes_and_commit`) — no
-dedicated coordinator rank exists. Hosts as separate OS processes are not
-ported yet (ROADMAP A4).
+dedicated coordinator rank exists.
 
 Chunk row indices stay GLOBAL, so a merged sharded checkpoint restores
 through the unchanged scatter path — byte-identically to a single-host save
@@ -29,7 +29,8 @@ so the byte format has exactly one implementation: every host's chunks go
 through the same ``quant_pack`` and ``chunk_hash`` kernels on the card
 (their plain versions on the CPU), carry the per-chunk content ``hash32``
 and are covered by ``scan_store`` exactly like single-host chunks. On one
-card the hosts' encode workers all queue on the same device. The part
+card the hosts' encode workers all queue on the same device (one context
+for thread hosts, one a process for host processes). The part
 manifests written here are what ``scan_store`` classifies as benign
 ``reclaimed-part`` debris after retention deletes a step's payload.
 """
@@ -100,7 +101,7 @@ def await_quorum(store: ObjectStore, step: int, num_hosts: int, *,
         # the durable manifest outranks a cancellation: once the last voter
         # committed, the checkpoint IS valid — raising Cancelled here would
         # skip the manager's post-commit bookkeeping for a committed step
-        # (the manager trusts the store the same way)
+        # (the multiprocess path trusts the store the same way)
         if committed():
             return "committed"
         if cancel is not None and cancel.is_set():

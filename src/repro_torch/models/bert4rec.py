@@ -172,7 +172,15 @@ def serve(params, batch, cfg: Bert4RecConfig,
                           for i in range(0, items.shape[0], rows)])
 
 
-def serve_retrieval(params, batch, cfg: Bert4RecConfig):
-    raise NotImplementedError(
-        "bert4rec serve_retrieval (the retrieval_cand cell) is not ported "
-        "yet: it comes with ROADMAP A3")
+def serve_retrieval(params, batch, cfg: Bert4RecConfig,
+                    attention: Callable = flash_attention) -> torch.Tensor:
+    """The retrieval_cand cell: one user's sequence (1, S) scored against C
+    candidate items; → (C,) f32, without gradients. The encode attends as
+    ``serve``'s does (two ``flash_attention`` launches on a card); the last
+    position's state then meets every candidate's embedding in one f32
+    product, plus the candidates' output bias."""
+    with torch.no_grad():
+        h = encode(params, batch["items"], cfg, attention)[0, -1].to(torch.float32)
+        cand = batch["candidate_ids"]                                  # (C,)
+        e = _take(params["tables"]["item_0"], cand).to(torch.float32)   # (C, D)
+        return e @ h + _take(params["dense"]["out_bias"], cand)

@@ -116,6 +116,36 @@ def serve(params, batch, cfg: DLRMConfig, bag=embedding_bag_fields,
         return torch.sigmoid(logits)
 
 
+def serve_retrieval(params, batch, cfg: DLRMConfig,
+                    bag=embedding_bag_fields) -> torch.Tensor:
+    """The retrieval_cand cell: one user context (batch 1) scored against C
+    candidate items, which stand in for sparse field 0; → (C,) f32
+    probabilities, without gradients. The user's bottom MLP and its 26-field
+    lookup (one ``bag`` call: one ``embedding_bag`` launch on a card; field 0
+    is looked up and dropped) are computed once; the candidates are gathered
+    from ``emb_0``. The top MLP's input is the reference's layout, not
+    ``serve``'s: ``[bot, cand·fixedᵀ, triu(fixed·fixedᵀ, k=1)]`` with
+    ``fixed = [bot, e_1 … e_{F-1}]``; both products are plain matmuls, as
+    in the reference."""
+    cd = cfg.compute_dtype
+    with torch.no_grad():
+        cand_ids = batch["candidate_ids"].to(torch.int64)          # (C,)
+        C = cand_ids.shape[0]
+        bot = mlp_apply(params["dense"]["bot"], batch["dense"], final_act=True,
+                        compute_dtype=cd)                           # (1, D)
+        emb = lookup_fields(params["tables"], batch["sparse_ids"], bag=bag)
+        cand = params["tables"]["emb_0"].index_select(0, cand_ids).to(cd)
+        fixed = torch.cat([bot[:, None, :], emb[:, 1:, :].to(cd)], dim=1)[0]
+        iu, ju = np.triu_indices(fixed.shape[0], k=1)
+        fixed_dots = (fixed @ fixed.T)[torch.from_numpy(iu).to(fixed.device),
+                                       torch.from_numpy(ju).to(fixed.device)]
+        cand_dots = cand @ fixed.T                                  # (C, F)
+        top_in = torch.cat([bot[0].expand(C, bot.shape[-1]), cand_dots,
+                            fixed_dots.expand(C, fixed_dots.shape[0])], dim=-1)
+        out = mlp_apply(params["dense"]["top"], top_in, compute_dtype=cd)
+        return torch.sigmoid(out[..., 0].to(torch.float32))
+
+
 def make_sparse_train_step(cfg: DLRMConfig, dense_opt, lr: float = 0.01,
                            eps: float = 1e-8):
     """Sparse embedding update with exact row-wise-AdaGrad semantics.

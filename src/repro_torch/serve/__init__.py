@@ -3,8 +3,8 @@ over the manifest chain for online training.
 
 * ``delta_index`` — the commit-time touched-row summary stamped into
   manifests, and its lazy version-0 derivation for legacy chains.
-* ``subscriber`` — :class:`CheckpointSubscriber`: polls a store (local or
-  in-memory), plans the minimal catch-up via the range planner, and
+* ``subscriber`` — :class:`CheckpointSubscriber`: polls a store (LocalFS
+  or remote URI), plans the minimal catch-up via the range planner, and
   streams fetch→decode→apply into an embedding server.
 * ``server`` — :class:`EmbeddingServer`: in-memory double-buffered tables;
   concurrent lookups never observe a partially applied step.

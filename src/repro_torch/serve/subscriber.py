@@ -2,8 +2,8 @@
 an :class:`~repro_torch.serve.server.EmbeddingServer` fresh by applying deltas.
 
 Carried over from the reference (``src/repro/serve/subscriber.py``) with
-its imports re-pointed; it reads local and in-memory stores (the remote
-store is not ported yet).
+its imports re-pointed. It is store-agnostic: local, in-memory and remote
+(``make_store("http://…")``) stores alike.
 
 State machine (docs/serving.md):
 

@@ -123,13 +123,6 @@ def test_serve_slices_give_the_unsliced_scores(cells):
     torch.testing.assert_close(sliced, whole, rtol=1e-6, atol=1e-6)
 
 
-def test_serve_retrieval_names_its_roadmap_entry(cells):
-    with pytest.raises(NotImplementedError, match="A3"):
-        bert4rec.serve_retrieval(None, None, cells[3])
-    with pytest.raises(NotImplementedError, match="A3"):
-        get_cell("bert4rec", "retrieval_cand", reduced=True, device="cpu")
-
-
 def test_train_loss_matches_reference(cells):
     ref_bundle, _, ref_cfg, cfg, ref_state, np_state = cells
     state = state_from_numpy(np_state, "cpu")

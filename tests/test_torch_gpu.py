@@ -19,6 +19,8 @@ values), the reference's bars for its kernel; the unpacked
 on rows at rounding ties.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -268,9 +270,11 @@ def _fields_inputs(B, F, H, D, vocabs, device, seed):
     return tables, torch.from_numpy(ids.astype(np.int32)).to(device)
 
 
-# (B, F, H, D, vocabs): dlrm-rm2's serve_p99 shape at a small vocabulary,
+# (B, F, H, D, vocabs): dlrm-rm2's serve_p99 and retrieval (batch 1)
+# shapes at a small vocabulary,
 # F of 1 to 40, H > 1, D not a multiple of 4, unequal vocabularies
-FIELDS_SHAPES = [(512, 26, 1, 64, [1000] * 26), (300, 1, 1, 64, [70]),
+FIELDS_SHAPES = [(512, 26, 1, 64, [1000] * 26), (1, 26, 1, 64, [1000] * 26),
+                 (300, 1, 1, 64, [70]),
                  (64, 40, 3, 16, [20 + 7 * f for f in range(40)]),
                  (33, 5, 4, 10, [5, 900, 31, 2, 64]), (17, 3, 7, 200, [300, 11, 4096]),
                  (128, 26, 2, 64, [2 ** 12 + f for f in range(26)]), (5, 64, 1, 4, [9] * 64)]
@@ -461,7 +465,7 @@ def test_serving_forward_launches_each_kernel_per_batch(cuda):
 
 
 # (B, Sq, Sk, Hq, Hkv, D, causal): the reference's test shapes, bert4rec's
-# serve shapes, and cases for the tensor-core tiling: S not a multiple of
+# serve and retrieval (batch 1: a grid of 2 blocks) shapes, and cases for the tensor-core tiling: S not a multiple of
 # 16 (1, 17, 200, 257), D of 16 to 128 (100 pads to 112), 4 q heads on one
 # kv head, causal with ragged S, Sq != Sk, and keys longer than one staged
 # chunk of shared memory (D 32: 576 keys a chunk, D 64: 256, D 128: 128)
@@ -473,7 +477,8 @@ FLASH_SHAPES = [(2, 128, 128, 4, 2, 64, True), (1, 256, 256, 8, 8, 32, False),
                 (4, 1, 200, 2, 2, 32, False), (2, 200, 17, 2, 1, 128, False),
                 (2, 257, 130, 2, 2, 100, True), (1, 17, 257, 4, 1, 128, True),
                 (2, 200, 200, 4, 1, 32, True), (1, 300, 700, 4, 2, 64, False),
-                (2, 600, 600, 2, 1, 128, True), (1, 64, 1500, 2, 2, 32, False)]
+                (2, 600, 600, 2, 1, 128, True), (1, 64, 1500, 2, 2, 32, False),
+                (1, 200, 200, 2, 2, 32, False), (1, 200, 200, 2, 2, 32, True)]
 
 
 def _flash_inputs(B, Sq, Sk, Hq, Hkv, D, dtype, device, seed):
@@ -715,3 +720,85 @@ def test_bert4rec_serving_launches_flash_twice_per_forward(cuda):
                            p99.cfg, attention=fa.flash_attention_torch)
     assert scores.shape == (16, 100) and torch.isfinite(scores).all()
     torch.testing.assert_close(scores, plain, rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("arch", ["dlrm-rm2", "bert4rec"])
+def test_retrieval_on_the_card_matches_the_plain_ops(cuda, arch):
+    """The retrieval cell (one user, batch 1, against 512 candidates): for
+    dlrm-rm2 one ``embedding_bag`` launch and no ``dot_interaction`` launch
+    a request, within the bf16 serve bar of the plain lookup (1e-3); for
+    bert4rec two tensor-core ``flash_attention`` launches a request, within
+    2e-2 of the plain attention, and its first 100 scores within 1e-4 of
+    ``serve`` on the same sequence and candidates (only the last
+    product's order differs)."""
+    from repro_torch.configs import get_cell
+    from repro_torch.data.cells import batch_for_cell
+    from repro_torch.kernels.dot_interaction import ops as di
+    from repro_torch.kernels.embedding_bag import ops as eb
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import bert4rec, dlrm
+    from repro_torch.train.loop import batch_to_device
+
+    bundle = get_cell(arch, "retrieval_cand", reduced=True, device=cuda)
+    params = get_cell(arch, "train_batch", reduced=True, device=cuda).make_state().params
+    counters = (eb.LAUNCHES, di.LAUNCHES, fa.MMA_LAUNCHES, fa.SIMT_LAUNCHES)
+    for c in counters:
+        c.reset()
+    for i in range(3):
+        b = batch_to_device(batch_for_cell(bundle, i), cuda)
+        got = bundle.step_fn(params, b)
+    assert got.shape == (512,) and got.dtype == torch.float32 and torch.isfinite(got).all()
+    counts = tuple(c.count for c in counters)
+    if arch == "dlrm-rm2":
+        assert counts == (3, 0, 0, 0)
+        want = dlrm.serve_retrieval(params, b, bundle.cfg, bag=eb.embedding_bag_fields_torch)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+    else:
+        assert counts == (0, 0, 6, 0)
+        want = bert4rec.serve_retrieval(params, b, bundle.cfg,
+                                        attention=fa.flash_attention_torch)
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-2)
+        sub = dict(items=b["items"], candidate_ids=b["candidate_ids"][None, :100])
+        torch.testing.assert_close(got[:100], bert4rec.serve(params, sub, bundle.cfg)[0],
+                                   rtol=0, atol=1e-4)
+
+
+def test_multiprocess_save_on_the_card_reports_its_launches(cuda, tmp_path):
+    """Host processes on the card (``multiprocess=True``, ``device="cuda"``):
+    each makes its own CUDA context and quantizes and hashes its chunks
+    with the kernels in that process; the launches the processes report
+    add up to the chunks written, and the store restores to the in-process
+    save's state."""
+    from repro_torch.core import (CheckNRunManager, CheckpointConfig, LocalFSStore,
+                                  Snapshot)
+    from repro_torch.core import manifest as mf
+    from repro_torch.core.quantize import QuantConfig
+
+    rng = np.random.default_rng(0)
+    tables = {f"emb_{i}": rng.normal(size=(3000 + 7 * i, 64)).astype(np.float32)
+              for i in range(3)}
+    snap = Snapshot(step=1, tables=tables,
+                    row_state={n: {"acc": np.abs(rng.normal(size=t.shape[0]))
+                                   .astype(np.float32)} for n, t in tables.items()},
+                    touched={n: np.ones(t.shape[0], bool) for n, t in tables.items()},
+                    dense={"w": rng.normal(size=(16, 16)).astype(np.float32)}, extra={})
+    cfg = CheckpointConfig(policy="full_only", quant=QuantConfig(bits=4, method="adaptive"),
+                           async_write=False, chunk_rows=512, num_hosts=2, device="cuda",
+                           multiprocess=True, spill_dir=str(tmp_path),
+                           write_deadline_s=300.0)
+    mgr = CheckNRunManager(LocalFSStore(str(tmp_path / "mp")), cfg)
+    res = mgr.save(snap).result()
+    man = mf.load(mgr.store, 1)
+    chunks = sum(len(t.chunks) for t in man.tables.values())
+    hosts = res.pipeline_stats["per_host"]
+    assert all(h["cuda_initialized"] for h in hosts)
+    assert sum(h["launches"]["quant_pack"] for h in hosts) == chunks
+    assert sum(h["launches"]["chunk_hash"] for h in hosts) == chunks
+    inproc = CheckNRunManager(LocalFSStore(str(tmp_path / "ip")),
+                              dataclasses.replace(cfg, multiprocess=False))
+    inproc.save(snap).result()
+    a, b = mgr.restore(), inproc.restore()
+    for n in tables:
+        np.testing.assert_array_equal(a.tables[n], b.tables[n])
+    mgr.close()
+    inproc.close()

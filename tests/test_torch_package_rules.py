@@ -3,6 +3,9 @@
 * It imports neither JAX nor the reference package ``repro``, statically
   (an AST scan of every file) and at run time (a subprocess imports every
   module, runs a tiny CPU save→restore and inspects ``sys.modules``).
+* The entry points that run as their own processes
+  (``python -m repro_torch.dist.host_proc``, ``python -m
+  repro_torch.launch.ckpt``) run in a fresh interpreter without either.
 * ``device="cuda"`` without a card raises; nothing falls back to the CPU.
 """
 
@@ -80,6 +83,54 @@ def test_subprocess_imports_and_round_trip_without_jax(tmp_path):
     assert out.stdout.strip().endswith("OK")
 
 
+def test_host_process_and_cli_run_without_jax(tmp_path):
+    """A one-host save through ``repro_torch.dist.host_proc``'s main, then
+    ``ckpt scan`` and ``ckpt recover --device cpu`` through
+    ``repro_torch.launch.ckpt``'s, each as ``python -m`` runs it, in one
+    fresh interpreter that never imports JAX or the reference."""
+    code = textwrap.dedent(f"""
+        import runpy, sys
+        import numpy as np
+        from repro_torch.core import CheckpointConfig, CommitContext, Snapshot
+        from repro_torch.dist import host_proc
+        rng = np.random.default_rng(0)
+        tab = rng.normal(size=(300, 8)).astype(np.float32)
+        snap = Snapshot(step=1, tables={{"emb": tab}},
+                        row_state={{"emb": {{"opt_acc": np.ones(300, np.float32)}}}},
+                        touched={{"emb": np.ones(300, bool)}},
+                        dense={{"w": np.eye(3, dtype=np.float32)}}, extra={{}})
+        cfg = CheckpointConfig(quant=None, device="cpu", num_hosts=1,
+                               multiprocess=True)
+        ctx = CommitContext(kind="full", base_step=1, prev_step=None, quant=None,
+                            policy={{"name": "full_only"}}, extra={{"bitwidth": None}})
+        spill, root = {str(tmp_path / "spill")!r}, {str(tmp_path / "store")!r}
+        host_proc.write_spill(spill, snap, {{}}, {{}}, cfg, 1, 1, ctx, True)
+
+        def run(module, *argv):
+            sys.argv = [module, *argv]
+            try:
+                runpy.run_module(module, run_name="__main__")
+            except SystemExit as e:
+                return e.code
+        assert run("repro_torch.dist.host_proc", "--store", root, "--spill", spill,
+                   "--host", "0") == 0
+        assert run("repro_torch.launch.ckpt", "scan", "--dir", root) == 0
+        assert run("repro_torch.launch.ckpt", "recover", "--dir", root, "--host", "0",
+                   "--device", "cpu") == 0
+        bad = sorted(k for k in sys.modules
+                     if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not bad, bad
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "all 1 step(s) clean" in out.stdout
+    assert "recovered host 0 (partial) at step 1" in out.stdout
+    assert out.stdout.strip().endswith("OK")
+
+
 def _no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
@@ -107,6 +158,15 @@ def test_cuda_without_card_raises_in_the_bert4rec_cells(monkeypatch):
     for shape in ("train_batch", "serve_p99"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             get_cell("bert4rec", shape, reduced=True)
+
+
+def test_cuda_without_card_raises_in_the_retrieval_cells(monkeypatch):
+    from repro_torch.configs import get_cell
+
+    _no_card(monkeypatch)
+    for arch in ("dlrm-rm2", "bert4rec"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            get_cell(arch, "retrieval_cand", reduced=True)
 
 
 def test_cuda_without_card_raises_in_the_launcher(monkeypatch, tmp_path):

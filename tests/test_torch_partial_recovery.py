@@ -14,8 +14,11 @@ ONE shard (docs/partial_recovery.md).
   ``extra["shard"]`` for every host of a 4-host chain, whichever package
   wrote it.
 
-Host processes, their respawn, the remote store and the CLI are not ported
-yet (ROADMAP A4); ``respawn`` raises.
+* over REAL host processes (``device="cpu"``): the SIGKILL drill — kill
+  any one of 4 hosts at any protocol point, detect it by exit code and
+  heartbeat, ``respawn`` only the victim against the same spill to finish
+  an aborted save, then replay its shard alone — and the Trainer's exact
+  recovery after a host killed mid-save, bitwise the never-failed run.
 """
 
 import dataclasses
@@ -431,11 +434,71 @@ def test_heartbeat_keys_are_the_references():
     assert recovery.read_fence(store, 2) == 2
 
 
-@pytest.mark.parametrize("method", ["respawn", "respawn_resharded"])
-def test_host_respawn_is_not_ported_yet(method):
-    sup = recovery.RecoverySupervisor(InMemoryStore(), NUM_HOSTS)
-    with pytest.raises(NotImplementedError, match="A4"):
-        getattr(sup, method)("root", "spill", 1)
+# --------------------------------------------------------------------------
+# SIGKILL drill over REAL host processes
+# --------------------------------------------------------------------------
+
+# victims vary across protocol points: "kill ANY one of 4"
+DRILL = [
+    ("mid_chunks:0", 0, False),
+    ("mid_chunks:2", 1, False),
+    ("before_vote", 3, False),
+    ("after_vote", 2, True),
+    ("mid_merge", 2, True),
+]
+
+
+@pytest.mark.parametrize("fault,victim,may_commit", DRILL)
+def test_sigkill_drill_detect_respawn_recover(tmp_path, fault, victim,
+                                              may_commit):
+    from tests import test_torch_multiprocess_commit as mpc
+
+    root, store, snap, ref = mpc.committed_step1(tmp_path)
+    snap2 = dataclasses.replace(touch(snap, np.random.default_rng(3)), step=2)
+    codes, procs, spill = mpc.orchestrate(
+        root, tmp_path, snap2, 2, faults={victim: fault}, heartbeat_s=0.1,
+        race_hosts={victim} if fault == "mid_merge" else None,
+        commit_timeout=(mpc.COMMIT_OK_TIMEOUT_S if may_commit
+                        else mpc.COMMIT_TIMEOUT_S), keep_procs=True)
+    assert codes[victim] == -9, f"victim exited {codes[victim]}, not SIGKILL"
+    assert_no_torn_manifests(store)
+    assert store.exists(mf.manifest_key(2)) == may_commit
+
+    # real host processes published liveness keys before dying
+    assert recovery.read_heartbeat(store, victim) is not None
+
+    # detection: the victim is condemned by exit code; in the committed
+    # cases the survivors (exit 0) are never flagged
+    sup = recovery.RecoverySupervisor(store, NUM_HOSTS)
+    fails = sup.detect_failures(dict(enumerate(procs)))
+    assert victim in [f.host for f in fails]
+    if may_commit:
+        assert [f.host for f in fails] == [victim]
+
+    if not may_commit:
+        # the aborted save completes by respawning ONLY the victim against
+        # the same spill: the survivors' votes are still durable, so the
+        # replacement writes its chunks, votes, observes the quorum and
+        # commits — no survivor restarts
+        p = sup.respawn(root, spill, victim, heartbeat_s=0.1,
+                        commit_timeout_s=mpc.COMMIT_TIMEOUT_S,
+                        log_path=str(tmp_path / "respawn.log"))
+        assert mpc.wait_all([p]) == [0]
+        assert mf.latest_step(store) == 2
+        assert_no_torn_manifests(store)
+
+    # shard-only recovery at the committed step: O(shard) bytes
+    mgr = CheckNRunManager(store, make_cfg())
+    before = store.counters.snapshot()["bytes_read"]
+    rs = sup.recover(mgr, victim, step=2)
+    nbytes = store.counters.snapshot()["bytes_read"] - before
+    assert rs.extra["recovery"]["kind"] == "partial"
+    assert rs.step == 2
+    assert nbytes <= recovery.shard_nbytes(store, victim, 2) + META_SLACK
+    shard_slice_equal(rs, snap2.tables)
+    # the recovered epoch outranks the dead incarnation's
+    assert rs.extra["recovery"]["fence_epoch"] == 1
+    mgr.close()
 
 
 # --------------------------------------------------------------------------
@@ -619,3 +682,46 @@ def test_recover_host_refuses_unknown_mode_and_empty_store(bundle):
     with pytest.raises(FileNotFoundError):
         t.recover_host(0)
     t.close()
+
+
+def test_trainer_exact_recovery_multiprocess_byte_identical(bundle, tmp_path):
+    """The full drill over real host processes: a host SIGKILLed mid-save
+    aborts the step-9 checkpoint; exact-mode recovery replays only that
+    shard, survivors roll back in memory, and retraining is bitwise the
+    never-failed run at O(shard) recovery bytes."""
+    from repro_torch.core import LocalFSStore
+    from repro_torch.dist import host_proc
+    from tests import test_torch_multiprocess_commit as mpc
+
+    ref = _trainer(bundle, InMemoryStore())
+    ref.init_or_restore()
+    ref_state = ref.run(9)
+    ref.close()
+
+    root = str(tmp_path / "store")
+    store = LocalFSStore(root)
+    t = _trainer(bundle, store, multiprocess=True, spill_dir=str(tmp_path),
+                 heartbeat_s=0.1, commit_timeout_s=mpc.COMMIT_TIMEOUT_S,
+                 failfast_grace_s=1.0, write_deadline_s=mpc.HOST_WAIT_S)
+    t.init_or_restore()
+    t.run(6)
+    assert mf.latest_step(store) == 6
+    t.manager.config.proc_fault = "1:mid_chunks:1"   # SIGKILL host 1 mid-save
+    with pytest.raises(host_proc.MultiprocessSaveError):
+        t.run(3)                                     # the step-9 save dies
+    t.manager.config.proc_fault = None
+    assert mf.latest_step(store) == 6                # survivors' store intact
+
+    resumed = t.recover_host(1, mode="exact")
+    assert resumed == 6
+    assert t.last_recovery["kind"] == "partial"
+    assert t.manager.metrics().restore_bytes_total \
+        <= recovery.shard_nbytes(store, 1, 6)
+    final = t.run(3)                                 # retrain; step 9 commits
+    assert mf.latest_step(store) == 9
+    t.close()
+    a, b = _flat(ref_state.params), _flat(final.params)
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert_no_torn_manifests(store)

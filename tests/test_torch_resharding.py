@@ -13,8 +13,8 @@
 * across packages: a 2-host chain read at 3 hosts gives the reference's
   arrays and ``extra["shard"]`` for every target host.
 
-Completing an aborted save at a new host count (``respawn_resharded``)
-needs host processes (ROADMAP A4).
+* the elastic drill over REAL host processes: a SIGKILLed N-host save
+  completes as an M-host save through ``respawn_resharded`` (2→4, 4→2).
 """
 
 import dataclasses
@@ -417,3 +417,77 @@ def test_splice_shard_state_is_the_references():
                                   arrays["a"][:10])
     np.testing.assert_array_equal(got.params["tables"]["a"].numpy()[10:23],
                                   restored["tables"]["a"])
+
+
+# --------------------------------------------------------------------------
+# the elastic drill: complete a SIGKILLed N-host save as an M-host save
+# --------------------------------------------------------------------------
+
+
+ELASTIC = [
+    ("before_vote", 0, 2, 4),    # grow 2→4
+    ("mid_chunks:0", 1, 4, 2),   # shrink 4→2
+]
+
+
+@pytest.mark.parametrize("fault,victim,old_n,new_n", ELASTIC)
+def test_elastic_drill_respawn_resharded(tmp_path, fault, victim, old_n,
+                                         new_n):
+    """SIGKILL one of ``old_n`` real host processes mid-save, then complete
+    the SAME spilled step as a ``new_n``-host save: ``respawn_resharded``
+    fences both layouts, purges the old-layout votes, rewrites the spill
+    layout, and the relaunched fleet commits a manifest whose restore is
+    the snapshot byte for byte, each new shard read at O(its target
+    shard)."""
+    from repro_torch.core import LocalFSStore
+    from tests import test_torch_multiprocess_commit as mpc
+    from tests.fault_injection import assert_no_torn_manifests
+
+    root = str(tmp_path / "store")
+    store = LocalFSStore(root)
+    mgr = CheckNRunManager(store, make_cfg(num_hosts=old_n))
+    snap = tiny(step=1)
+    mgr.save(snap).result()
+    mgr.close()
+
+    snap2 = dataclasses.replace(touch(snap, np.random.default_rng(9)), step=2)
+    codes, procs, spill = mpc.orchestrate(
+        root, tmp_path, snap2, 2, faults={victim: fault}, heartbeat_s=0.1,
+        num_hosts=old_n, keep_procs=True)
+    assert codes[victim] == -9
+    assert not store.exists(mf.manifest_key(2))   # the save aborted
+    assert_no_torn_manifests(store)
+
+    sup = recovery.RecoverySupervisor(store, old_n)
+    relaunched = sup.respawn_resharded(
+        root, spill, new_n, heartbeat_s=0.1,
+        commit_timeout_s=mpc.COMMIT_OK_TIMEOUT_S, log_dir=str(tmp_path))
+    assert sorted(relaunched) == list(range(new_n))
+    assert mpc.wait_all(list(relaunched.values())) == [0] * new_n
+
+    assert mf.latest_step(store) == 2
+    assert_no_torn_manifests(store)
+    man = mf.load(store, 2)
+    assert rr.layout_num_hosts(man) == new_n
+    assert (man.shards or {}).get("num_hosts") == new_n
+    # every host of BOTH layouts was fenced against zombies
+    for h in range(max(old_n, new_n)):
+        assert recovery.read_fence(store, h) >= 1
+
+    probe = CheckNRunManager(store, make_cfg(num_hosts=new_n))
+    full = probe.restore(2)
+    for name, tab in snap2.tables.items():
+        np.testing.assert_array_equal(full.tables[name], tab, err_msg=name)
+    for h in range(new_n):
+        before = store.counters.snapshot()["bytes_read"]
+        rs = probe.restore_part(h, 2)
+        nbytes = store.counters.snapshot()["bytes_read"] - before
+        shard_slice_equal(rs, snap2.tables, snap2.row_state)
+        assert nbytes <= recovery.shard_nbytes(store, h, 2) + META_SLACK
+    probe.close()
+    # committed under one layout, it is a plain (not resharded) read there
+    assert rs.extra["shard"]["resharded"] is False
+
+    # respawning an already-committed step is refused
+    with pytest.raises(RuntimeError, match="already committed"):
+        sup.respawn_resharded(root, spill, new_n)

@@ -124,11 +124,6 @@ def test_plain_ops_give_the_same_forward(cells):
     np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
-def test_retrieval_cell_names_its_roadmap_entry():
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        get_cell("dlrm-rm2", "retrieval_cand", reduced=True, device="cpu")
-
-
 def test_reference_chain_restores_into_the_port_serve_bundle(cells, tmp_path):
     ref_train = ref_get_cell("dlrm-rm2", "train_batch", reduced=True)
     tr = RefTrainer(ref_train, RefLocalFSStore(str(tmp_path)),

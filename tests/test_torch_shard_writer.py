@@ -288,12 +288,6 @@ def test_async_sharded_save_commits():
     mgr.close()
 
 
-def test_multiprocess_hosts_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A4"):
-        CheckNRunManager(InMemoryStore(), port_cfg(num_hosts=2,
-                                                   multiprocess=True))
-
-
 def test_quantized_chunks_launch_one_quant_pack_and_hash_each(monkeypatch):
     """Every chunk of every host goes through the fused encode once: one
     ``quant_pack`` and one ``chunk_hash`` call a chunk (their plain versions
