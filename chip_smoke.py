@@ -77,6 +77,31 @@ Phases:
      requests after a warm-up, 2 tensor-core ``flash_attention`` launches
      each, against the plain attention and against ``serve`` on the first
      100 candidates.
+  6. xdeepfm at full width, no cut (39 fields; 22,451,200 rows at dim 10
+     and as many at dim 1, 0.99 GB f32; CIN 200-200-200, MLP 400-400, bf16
+     compute): the Trainer at batch 65,536 through 4-bit adaptive saves
+     every 2 steps (a full save is 752 chunks, 376 a table family, each one
+     ``quant_pack`` and one ``chunk_hash`` launch, the dim-1 ones on the
+     kernel's masked route), a failure at 7, a restore (``emb_*`` within the
+     4-bit bar, every ``lin_*`` value its fp16 rounding), a save at 8; a
+     traced step and its peak memory; serving from that chain, serve_p99
+     and serve_bulk, two ``embedding_bag`` launches a forward (39 fields at
+     D = 10, 39 at D = 1: the scalar route), probabilities bit-equal to the
+     plain lookups'; retrieval, one user against 1,000,000 candidates
+     (999,424 scored: whole chunks of 8,192), four launches a request.
+  7. mind at full width, no cut (1,000,448 items x 64, 4 interests, 3
+     routing iterations, history 50, 1,024 shared negatives): saves at 2
+     (full, 16 chunks) and 4, a restore, a save at 6; serve_p99,
+     serve_bulk and retrieval (1,000,000 candidates, the max over
+     interests), no kernel in a forward (the reference's lookups are
+     ``jnp.take``).
+  8. k-means: the Fig. 5 orderings at (1,000,448, 64), 3 bits, 8 blocks,
+     on the reference test's skewed rows (the adaptive arm one
+     ``adaptive_quant`` launch); the card against the CPU on 4,096 rows;
+     each quantizer timed; every method's L2 on mind's trained table.
+  9. the CPR-versus-full loss experiment on its reduced dlrm-rm2 cell on
+     the card: within its bound, a partial recovery, fewer bytes read than
+     a full restore.
 
 Each path's launch counters are set to 0 just before it and read just
 after; every kernel of a path must have launched in it, and a kernel's
@@ -472,9 +497,10 @@ def phase_kernels():
     checks = []
     # dims 64 and 128 are whole multiples of 32 (codes packed in registers
     # at 2, 4 and 8 bits, and 2 and 4); 10, 16, 96 and 200 leave lanes
-    # part-filled (shared memory)
+    # part-filled (shared memory), and so do xDeepFM's save chunks, (65536,
+    # 10) and (65536, 1)
     for rows, dim in ((65536, 64), (1000, 10), (333, 200), (500, 16), (300, 96),
-                      (257, 128)):
+                      (257, 128), (65536, 10), (65536, 1)):
         x = _rows(gen, rows, dim, dev)
         for bits, method in ([(b, "adaptive") for b in (2, 3, 4)]
                              + [(b, "uniform_asym") for b in range(1, 9)]):
@@ -574,6 +600,7 @@ def phase_kernels():
         f"{ch_call_ms:.4f} ms), plain {ch_plain_ms:.4f} ms, bound {ch_bound:.5f} ms "
         f"({ch_by}); an empty kernel {floor_ms:.4f} ms (profiler), the launch floor")
     serve_kernels = check_and_time_serve_kernels(gen, dev)
+    serve_kernels[0]["xdeepfm"] = check_and_time_xdeepfm_lookups(gen, dev)
     b4r_kernels = [check_and_time_flash(gen, dev), check_and_time_adaptive_quant(gen, dev)]
     return [
         dict(name="quant_pack", route="cuda",
@@ -845,6 +872,65 @@ def check_and_time_serve_kernels(gen, dev):
               retaken_traces=di_retaken, f32_route=dict(launches_on_paths=0, **{
                   f"batch_{B}": r for B, r in di_f32.items()})),
     ]
+
+
+def check_and_time_xdeepfm_lookups(gen, dev):
+    """xDeepFM's lookups: its 39 fields in one ``embedding_bag`` launch at
+    D = 10 (the ``emb_*`` tables) and D = 1 (``lin_*``), over its real
+    vocabularies (22,451,200 rows a family; 10,000,384 at the largest, so
+    the kernel's 64-bit row offsets), H = 1: bit-equal to the plain version,
+    then timed at serve_p99 (512) and serve_bulk (262,144) beside one
+    ``F.embedding_bag`` over the concatenated tables and the plain version.
+    Both widths take the kernel's scalar route (D % 4 != 0)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs.xdeepfm import XDEEPFM_VOCABS
+    from repro_torch.kernels.embedding_bag import ops as eb
+
+    NF = len(XDEEPFM_VOCABS)
+    first = torch.tensor([0] + list(itertools.accumulate(XDEEPFM_VOCABS))[:-1],
+                         device=dev, dtype=torch.int64)[None, :, None]
+
+    def rand_ids(B):
+        ids = torch.stack([torch.randint(0, v, (B, 1), generator=gen, device=dev)
+                           for v in XDEEPFM_VOCABS], dim=1).to(torch.int32)
+        ids[-1, :, 0] = torch.tensor([v - 1 for v in XDEEPFM_VOCABS], device=dev)
+        return ids
+
+    out = {}
+    for D in (10, 1):
+        tables = [torch.randn((v, D), generator=gen, device=dev) for v in XDEEPFM_VOCABS]
+        cat = torch.cat(tables)
+        res = {}
+        for B in (512, 262144):
+            sets = [(tables, rand_ids(B)) for _ in range(64 if B == 512 else 2)]
+            k = eb.embedding_bag_fields_cuda(*sets[0])
+            equal = bool(torch.equal(k, eb.embedding_bag_fields_torch(*sets[0])))
+            check(equal, f"embedding_bag, {NF} fields at D = {D}, batch {B}: not bit-equal")
+            lib_sets = [((i.long() + first).view(-1, 1), cat) for _, i in sets]
+            lib = _rotating(lambda i, t: F.embedding_bag(i, t, mode="sum"), lib_sets)
+            # bytes: each id's row read, the ids, each bag written in bf16
+            b_ms, b_by = bound(B * NF * (D * 4 + 4 + D * 2), {"fma": 0})
+            res[B] = dict(
+                bit_equal=equal,
+                ms=kernel_ms(_rotating(eb.embedding_bag_fields_cuda, sets),
+                             "embedding_bag_kernel"),
+                call_ms=time_ms(_rotating(eb.embedding_bag_fields_cuda, sets)),
+                plain_ms=time_ms(_rotating(eb.embedding_bag_fields_torch, sets), reps=10),
+                library_ms=time_ms(lib, reps=20), library_device_ms=device_ms(lib),
+                bound_ms=b_ms, bound_by=b_by)
+            r = res[B]
+            log(f"embedding_bag, xdeepfm's {NF} fields at D = {D} in one launch, batch "
+                f"{B}: kernel {r['ms']:.4f} ms (profiler; {b_ms / r['ms']:.1%} of the "
+                f"bound; one call between events {r['call_ms']:.4f} ms), plain "
+                f"{r['plain_ms']:.4f} ms, F.embedding_bag over the concatenated tables "
+                f"{r['library_ms']:.4f} ms (device {r['library_device_ms']:.4f} ms), "
+                f"bound {b_ms:.5f} ms ({b_by}); bit-equal to the plain version")
+        out[f"d{D}"] = dict(serve_bulk=res[262144], serve_p99=res[512])
+        del tables, cat
+        torch.cuda.empty_cache()
+    return out
 
 
 B4R_ITEMS = 1_000_448  # bert4rec's published catalog, padded to 512
@@ -1973,6 +2059,157 @@ def phase_multiprocess(kernels, root, device="cuda", reduced=False):
     return out
 
 
+# ------------------------------------------------------------------ the model phases' shared steps
+
+
+def _served_params(bundle, root, device):
+    """The newest chain in ``root`` restored into ``bundle``'s params;
+    returns (params, restored step, seconds)."""
+    from repro_torch.core import CheckNRunManager, CheckpointConfig, LocalFSStore
+    from repro_torch.train.state import restore_train_state
+
+    t0 = time.monotonic()
+    mgr = CheckNRunManager(LocalFSStore(root), CheckpointConfig(device=device))
+    restored = mgr.restore()
+    mgr.close()
+    params = restore_train_state(bundle.make_state(), restored, bundle.tracked).params
+    return params, restored.step, time.monotonic() - t0
+
+
+def _traced_split(fn):
+    """One call of ``fn`` under the profiler, its result dropped: (wall s,
+    device busy s, device ms by kernel group, the top kernels in ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t1
+    split, top = _device_split(prof, 1, {
+        "gemm": ("gemm", "nvjet", "xmma", "cutlass"), "embedding_bag": ("embedding_bag",),
+        "memcpy": ("memcpy",), "index": ("index", "scatter", "gather", "embedding")})
+    return dict(wall_s=round(wall, 4), busy_s=round(sum(split.values()) / 1e3, 4),
+                ms={k: round(v, 2) for k, v in split.items()}, top_ms=top)
+
+
+def _train_phase(arch, bundle, root, device, steps, fail_at=None):
+    """Train ``bundle`` from a fresh start for ``steps`` steps with 4-bit
+    adaptive saves every 2 steps into ``root`` (the intermittent policy), and
+    inject a failure at ``fail_at`` if given. Returns (trainer, closed;
+    its live tables as host arrays; figures)."""
+    import torch
+
+    from repro_torch.core import CheckpointConfig, LocalFSStore, PAPER_DEFAULTS
+    from repro_torch.kernels.adaptive_quant import ops as aq
+    from repro_torch.kernels.chunk_hash import ops as ch
+    from repro_torch.data.cells import batch_for_cell
+    from repro_torch.train.loop import (SimulatedFailure, Trainer, TrainerConfig,
+                                        batch_to_device)
+
+    step_s = []
+    step_fn = bundle.step_fn
+
+    def timed_step(state, batch):
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        out = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t1)
+        return out
+
+    bundle.step_fn = timed_step
+    ckpt = CheckpointConfig(interval_batches=2, policy="intermittent",
+                            quant=PAPER_DEFAULTS[4], keep_latest=10, device=device)
+    for c in (aq.LAUNCHES, ch.LAUNCHES):
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    tr = Trainer(bundle, LocalFSStore(root), ckpt, TrainerConfig(total_steps=steps,
+                                                                  log_every=1))
+    saves = _collect_saves(tr.manager)
+    check(tr.init_or_restore() == 0, f"{arch} fresh start")
+    tr.run(steps)
+    run_s = time.monotonic() - t0
+    tr.manager.wait()
+    wait_s = time.monotonic() - t0 - run_s
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    split = _traced_split(lambda: step_fn(tr.state, batch_to_device(
+        batch_for_cell(bundle, steps), bundle.device)))
+    live = {k: v.cpu().numpy() for k, v in tr.state.params["tables"].items()}
+    if fail_at is not None:
+        try:
+            tr.run(2, fail_at_step=fail_at)
+            raise RuntimeError("the injected failure did not fire")
+        except SimulatedFailure as e:
+            log(f"injected: {e}")
+    tr.close()
+    bundle.step_fn = step_fn
+    check(all(math.isfinite(h["loss"]) for h in tr.history), f"{arch} finite losses")
+    return tr, live, dict(
+        ckpt=ckpt, step_s=[round(t, 4) for t in step_s], peak_train_gb=peak_gb,
+        traced_step=split,
+        run_s=run_s, last_save_wait_s=wait_s, save_walls=_save_walls(saves),
+        stall_s=[round(t, 4) for t in tr.stall_times],
+        losses=[round(h["loss"], 5) for h in tr.history],
+        launches={"quant_pack": aq.LAUNCHES.count, "chunk_hash": ch.LAUNCHES.count})
+
+
+def _saved_steps(store, steps):
+    """Per committed step: its kind, chunk count and bytes; every chunk
+    carries its hash."""
+    from repro_torch.core import manifest as mf
+
+    out = {}
+    for s in steps:
+        man = mf.load(store, s)
+        recs = [c for t in man.tables.values() for c in t.chunks]
+        check(all(c.hash32 is not None for c in recs), f"hash32 on step {s}")
+        out[s] = dict(kind=man.kind, chunks=len(recs), nbytes=man.nbytes_total,
+                      rows=sum(c.n_rows for c in recs))
+    return out
+
+
+def _resume_and_save(bundle, root, ckpt, at):
+    """A fresh Trainer resumes from the chain in ``root`` at step ``at``,
+    equal to ``manager.restore()``, and trains 2 steps through one more
+    save, which is waited for. Returns (restore result, restore seconds,
+    resumed Trainer's history, the new save's chunk count, launches of the
+    save kernels meanwhile)."""
+    import torch
+
+    from repro_torch.core import CheckNRunManager, LocalFSStore, scan_store
+    from repro_torch.core import manifest as mf
+    from repro_torch.kernels.adaptive_quant import ops as aq
+    from repro_torch.kernels.chunk_hash import ops as ch
+    from repro_torch.train.loop import Trainer, TrainerConfig
+
+    t0 = time.monotonic()
+    rs = CheckNRunManager(LocalFSStore(root), ckpt).restore()
+    restore_s = time.monotonic() - t0
+    check(rs.step == at, f"restored step {rs.step}")
+    before = (aq.LAUNCHES.count, ch.LAUNCHES.count)
+    tr2 = Trainer(bundle, LocalFSStore(root), ckpt, TrainerConfig(total_steps=2, log_every=1))
+    check(tr2.init_or_restore() == at, f"resume at step {at}")
+    for name in list(rs.tables)[:3]:
+        check(torch.equal(tr2.state.params["tables"][name].cpu(),
+                          torch.from_numpy(rs.tables[name])),
+              f"{name}: Trainer restore == manager.restore()")
+    tr2.run(2)
+    tr2.manager.wait()
+    tr2.close()
+    check(all(math.isfinite(h["loss"]) for h in tr2.history), "finite losses after restore")
+    man = mf.load(LocalFSStore(root), at + 2)
+    n = sum(len(t.chunks) for t in man.tables.values())
+    resumed = {"quant_pack": aq.LAUNCHES.count - before[0],
+               "chunk_hash": ch.LAUNCHES.count - before[1]}
+    check(resumed == {"quant_pack": n, "chunk_hash": n},
+          f"resumed launches {resumed} == step-{at + 2} chunks {n}")
+    check(scan_store(LocalFSStore(root)).ok, "integrity scan after the resumed save")
+    return rs, restore_s, tr2, n, resumed
+
+
 # ------------------------------------------------------------------ phase 5
 
 
@@ -1988,16 +2225,14 @@ def phase_bert4rec(kernels, root, device="cuda", reduced=False, p99_batches=200,
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_cell
-    from repro_torch.core import (CheckNRunManager, CheckpointConfig,
-                                  LocalFSStore, PAPER_DEFAULTS, scan_store)
+    from repro_torch.core import CheckNRunManager, CheckpointConfig, LocalFSStore
     from repro_torch.core import manifest as mf
     from repro_torch.core.quantize import dequantize, mean_l2_loss, uniform_quantize
     from repro_torch.data.cells import batch_for_cell
     from repro_torch.kernels.adaptive_quant import ops as aq
-    from repro_torch.kernels.chunk_hash import ops as ch
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.models import bert4rec
-    from repro_torch.train.loop import Trainer, TrainerConfig, batch_to_device
+    from repro_torch.train.loop import batch_to_device
     from repro_torch.train.state import restore_train_state
 
     bundle = get_cell("bert4rec", "train_batch", reduced=reduced, device=device)
@@ -2015,101 +2250,38 @@ def phase_bert4rec(kernels, root, device="cuda", reduced=False, p99_batches=200,
         f"in 4 micro-batches, 256 shared negatives")
 
     # (a) train: steps 1-4 with saves at 2 (full) and 4 (incremental)
-    step_s = []
-    step_fn = bundle.step_fn
-
-    def timed_step(state, batch):
-        torch.cuda.synchronize()
-        t1 = time.monotonic()
-        out = step_fn(state, batch)
-        torch.cuda.synchronize()
-        step_s.append(time.monotonic() - t1)
-        return out
-
-    bundle.step_fn = timed_step
-    ckpt = CheckpointConfig(interval_batches=2, policy="intermittent",
-                            quant=PAPER_DEFAULTS[4], keep_latest=10, device=device)
+    tr, live, fig = _train_phase("bert4rec", bundle, root, device, 4)
     store = LocalFSStore(root)
-    for c in (aq.LAUNCHES, ch.LAUNCHES):
-        c.reset()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.monotonic()
-    tr = Trainer(bundle, store, ckpt, TrainerConfig(total_steps=4, log_every=1))
-    check(tr.init_or_restore() == 0, "bert4rec fresh start")
-    tr.run(4)
-    run_s = time.monotonic() - t0
-    tr.manager.wait()
-    wait_s = time.monotonic() - t0 - run_s
-    peak_train_gb = torch.cuda.max_memory_allocated() / 1e9
-    live = tr.state.params["tables"]["item_0"].cpu().numpy()
-    tr.close()
     steps = mf.list_steps(store)
     check(steps == [2, 4], f"bert4rec committed steps {steps}")
-    saves = {}
-    for s in steps:
-        man = mf.load(store, s)
-        recs = man.tables["item_0"].chunks
-        check(all(c.hash32 is not None for c in recs), f"hash32 on step {s}")
-        saves[s] = dict(kind=man.kind, chunks=len(recs), nbytes=man.nbytes_total,
-                        rows=sum(c.n_rows for c in recs))
+    saves = _saved_steps(store, steps)
     check(saves[2]["kind"] == "full" and saves[2]["rows"] == n_items,
           f"the first save is full: {saves[2]}")
     check(saves[4]["kind"] != "full" and 0 < saves[4]["rows"] < n_items,
           f"the second save is incremental: {saves[4]}")
     n_chunks = sum(v["chunks"] for v in saves.values())
-    launches = {"quant_pack": aq.LAUNCHES.count, "chunk_hash": ch.LAUNCHES.count}
-    check(launches == {"quant_pack": n_chunks, "chunk_hash": n_chunks},
-          f"bert4rec save launches {launches} == chunks written {n_chunks}")
-    check(all(math.isfinite(h["loss"]) for h in tr.history), "bert4rec finite losses")
-    log(f"bert4rec train: step times {[round(t, 3) for t in step_s]} s; stalls "
-        f"{[round(t, 3) for t in tr.stall_times]} s; init + 4 steps + 2 snapshots "
-        f"{run_s:.2f} s, then the last save {wait_s:.2f} s; peak device memory "
-        f"{peak_train_gb:.2f} GB; saves {json.dumps(saves)} (incremental row share "
-        f"{saves[4]['rows'] / n_items:.4f}); losses "
-        f"{[round(h['loss'], 5) for h in tr.history]}; accuracy "
+    check(fig["launches"] == {"quant_pack": n_chunks, "chunk_hash": n_chunks},
+          f"bert4rec save launches {fig['launches']} == chunks written {n_chunks}")
+    log(f"bert4rec traced step: {json.dumps(fig['traced_step'])}")
+    log(f"bert4rec train: step times {fig['step_s']} s; stalls {fig['stall_s']} s; init "
+        f"+ 4 steps + 2 snapshots {fig['run_s']:.2f} s, then the last save "
+        f"{fig['last_save_wait_s']:.2f} s; peak device memory {fig['peak_train_gb']:.2f} "
+        f"GB; saves {json.dumps(saves)} (incremental row share "
+        f"{saves[4]['rows'] / n_items:.4f}); losses {fig['losses']}; accuracy "
         f"{[round(h['accuracy'], 5) for h in tr.history]}")
 
     # (b) restore, resume, one more save (step 6) from the restored state
-    t0 = time.monotonic()
-    rs = CheckNRunManager(LocalFSStore(root), ckpt).restore()
-    restore_s = time.monotonic() - t0
-    check(rs.step == 4 and rs.chain_len == 2, f"restored step {rs.step}, chain {rs.chain_len}")
-    rel = float(np.abs(rs.tables["item_0"] - live).mean() / np.abs(live).mean())
+    rs, restore_s, tr2, n6, resumed = _resume_and_save(bundle, root, fig["ckpt"], 4)
+    check(rs.chain_len == 2, f"restored chain {rs.chain_len}")
+    rel = float(np.abs(rs.tables["item_0"] - live["item_0"]).mean()
+                / np.abs(live["item_0"]).mean())
     check(0 < rel < 0.1, f"4-bit restore error {rel} within the quantization bound")
-    tr2 = Trainer(bundle, LocalFSStore(root), ckpt, TrainerConfig(total_steps=2, log_every=1))
-    check(tr2.init_or_restore() == 4, "bert4rec resume at step 4")
-    check(torch.equal(tr2.state.params["tables"]["item_0"].cpu(),
-                      torch.from_numpy(rs.tables["item_0"])),
-          "Trainer restore == manager.restore()")
-    tr2.run(2)
-    tr2.manager.wait()
-    # where a training step's device time goes: one more step, traced,
-    # its result dropped
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t1 = time.monotonic()
-        step_fn(tr2.state, batch_to_device(batch_for_cell(bundle, 6), bundle.device))
-        torch.cuda.synchronize()
-        traced_step_s = time.monotonic() - t1
-    step_split, step_top = _device_split(prof, 1, {
-        "gemm": ("gemm", "nvjet", "xmma"), "memcpy": ("memcpy",)})
-    log(f"bert4rec traced step: wall {traced_step_s:.3f} s under the profiler, device "
-        f"busy {sum(step_split.values()) / 1e3:.3f} s "
-        f"({json.dumps({k: round(v, 1) for k, v in step_split.items()})} ms); top "
-        f"kernels (ms): {json.dumps(step_top)}")
-    man6 = mf.load(store, 6)
-    n6 = len(man6.tables["item_0"].chunks)
-    launches = {"quant_pack": aq.LAUNCHES.count, "chunk_hash": ch.LAUNCHES.count}
-    check(launches == {"quant_pack": n_chunks + n6, "chunk_hash": n_chunks + n6},
-          f"launches {launches} == chunks written {n_chunks + n6}")
-    check(mf.list_steps(store) == [2, 4, 6] and scan_store(LocalFSStore(root)).ok,
-          "bert4rec step 6 committed, store scans clean")
-    check(all(math.isfinite(h["loss"]) for h in tr2.history), "finite losses after restore")
     trained = tr2.state.params["tables"]["item_0"]
-    tr2.close()
+    launches = {k: fig["launches"][k] + resumed[k] for k in resumed}
     record_launches(kernels, "bert4rec train", launches)
     log(f"bert4rec restore of step 4 (chain 2) {restore_s:.2f} s, mean rel err "
         f"{rel:.5f}; resumed losses {[round(h['loss'], 5) for h in tr2.history]}; "
-        f"step-6 save {man6.kind}, {n6} chunks, {man6.nbytes_total} B")
+        f"step-6 save {n6} chunks; launches {launches}")
 
     # (c) serve from the chain: restore to the first answer, p99 batches,
     # a trace, bulk batches
@@ -2265,9 +2437,396 @@ def phase_bert4rec(kernels, root, device="cuda", reduced=False, p99_batches=200,
                      vs_serve_max_abs_ds=s_err, launches=r_launches)
     log(f"bert4rec retrieval: {json.dumps(retrieval)}")
     record_launches(kernels, "bert4rec retrieval", r_launches)
-    return dict(step_s=step_s, peak_train_gb=peak_train_gb, first_answer_s=first_s,
+    return dict(step_s=fig["step_s"], peak_train_gb=fig["peak_train_gb"],
+                first_answer_s=first_s,
                 p50_ms=p50, p99_ms=p99_ms, bulk_rows_s=rows_s, peak_bulk_gb=peak_bulk_gb,
                 serve_max_abs_ds=serve_err, l2=l2, retrieval=retrieval)
+
+
+# ------------------------------------------------------------------ phase 6
+
+
+XDEEPFM_ROWS = 22_451_200  # rows of each xDeepFM table family
+
+
+def phase_xdeepfm(kernels, root, device="cuda", reduced=False, p99_batches=100,
+                  bulk_batches=3, retrieval_requests=5):
+    """xDeepFM at full width, no cut: train through 4-bit adaptive saves, a
+    failure, a restore and one more save into ``root``; serve from that
+    chain (``serve_p99``, ``serve_bulk``) and retrieve (one user against
+    1,000,000 candidates). Each forward is two ``embedding_bag`` launches,
+    one for the 39 dim-10 ``emb_*`` fields and one for the 39 dim-1
+    ``lin_*`` fields; each save chunk one ``quant_pack`` and one
+    ``chunk_hash``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_cell
+    from repro_torch.core import LocalFSStore
+    from repro_torch.core import manifest as mf
+    from repro_torch.data.cells import batch_for_cell
+    from repro_torch.kernels.embedding_bag import ops as eb
+    from repro_torch.models import xdeepfm
+    from repro_torch.train.loop import batch_to_device
+
+    bundle = get_cell("xdeepfm", "train_batch", reduced=reduced, device=device)
+    cfg = bundle.cfg
+    F = cfg.n_sparse
+    check(reduced or cfg.n_sparse == 39 and cfg.embed_dim == 10
+          and cfg.cin_layers == (200, 200, 200) and cfg.mlp == (400, 400)
+          and sum(cfg.vocab_sizes) == XDEEPFM_ROWS and cfg.compute_dtype == torch.bfloat16
+          and bundle.make_inputs()["sparse_ids"].shape == (65536, 39, 1),
+          "xdeepfm at full width")
+    rows = sum(cfg.vocab_sizes)
+    log(f"xdeepfm full width: {F} fields, {rows} rows at dim {cfg.embed_dim} and "
+        f"{rows} at dim 1 ({rows * (cfg.embed_dim + 1) * 4 / 1e9:.2f} GB f32), CIN "
+        f"{cfg.cin_layers}, MLP {cfg.mlp}, batch "
+        f"{bundle.make_inputs()['sparse_ids'].shape[0]}")
+
+    # (a) train: saves at 2 (full), 4, 6; a failure at 7
+    tr, live, fig = _train_phase("xdeepfm", bundle, root, device, 6, fail_at=7)
+    store = LocalFSStore(root)
+    steps = mf.list_steps(store)
+    check(steps == [2, 4, 6], f"xdeepfm committed steps {steps}")
+    saves = _saved_steps(store, steps)
+    man2 = mf.load(store, 2)
+    by_family = {p: sum(len(t.chunks) for n, t in man2.tables.items() if n.startswith(p))
+                 for p in ("emb_", "lin_")}
+    n_chunks = sum(v["chunks"] for v in saves.values())
+    check(saves[2]["kind"] == "full" and saves[2]["rows"] == 2 * rows,
+          f"the first save is full: {saves[2]}")
+    check(reduced or by_family == {"emb_": 376, "lin_": 376},
+          f"a full save writes 376 chunks a family: {by_family}")
+    check(fig["launches"] == {"quant_pack": n_chunks, "chunk_hash": n_chunks},
+          f"xdeepfm save launches {fig['launches']} == chunks written {n_chunks}")
+    log(f"xdeepfm traced step: {json.dumps(fig['traced_step'])}")
+    log(f"xdeepfm train: step times {fig['step_s']} s; peak device memory "
+        f"{fig['peak_train_gb']:.2f} GB; stalls {fig['stall_s']} s; init + 6 steps + 3 "
+        f"snapshots {fig['run_s']:.2f} s, then the last save {fig['last_save_wait_s']:.2f} "
+        f"s; save wall_s (whole, pipeline) {fig['save_walls']}; saves {json.dumps(saves)} "
+        f"(full: {json.dumps(by_family)}); losses {fig['losses']}")
+
+    # (b) restore step 6: emb_* within the 4-bit bar, each lin_* value its
+    # fp16 rounding (a one-value row: scale 1, code 0, the zero in fp16);
+    # then resume and save at 8
+    rs, restore_s, tr2, n8, resumed = _resume_and_save(bundle, root, fig["ckpt"], 6)
+    rel = {}
+    for i in range(F):
+        a, want = rs.tables[f"emb_{i}"], live[f"emb_{i}"]
+        rel[i] = float(np.abs(a - want).mean() / np.abs(want).mean())
+        check(np.array_equal(rs.tables[f"lin_{i}"],
+                             live[f"lin_{i}"].astype(np.float16).astype(np.float32)),
+              f"lin_{i} restores as its fp16 values")
+    check(all(0 < r < 0.1 for r in rel.values()), f"emb_* restore error {rel}")
+    launches = {k: fig["launches"][k] + resumed[k] for k in resumed}
+    record_launches(kernels, "xdeepfm train", launches)
+    log(f"xdeepfm restore of step 6 (chain {rs.chain_len}) {restore_s:.2f} s; emb_* mean "
+        f"rel err worst {max(rel.values()):.5f}, best {min(rel.values()):.5f}; every "
+        f"lin_* value its fp16 rounding; resumed losses "
+        f"{[round(h['loss'], 5) for h in tr2.history]}; step-8 save {n8} chunks; "
+        f"launches {launches}")
+    del tr, tr2, live, rs
+    torch.cuda.empty_cache()
+
+    # (c) serve from the chain: two embedding_bag launches a forward
+    p99 = get_cell("xdeepfm", "serve_p99", reduced=reduced, device=device)
+    bulk = get_cell("xdeepfm", "serve_bulk", reduced=reduced, device=device)
+    batches = [batch_for_cell(p99, 50_000 + i) for i in range(p99_batches)]
+    bulk_np = [batch_for_cell(bulk, 60_000 + i) for i in range(bulk_batches)]
+    eb.LAUNCHES.reset()
+    t0 = time.monotonic()
+    params, step, _ = _served_params(p99, root, device)
+    answer = lambda bnd, b: bnd.step_fn(params, batch_to_device(b, bnd.device)).cpu().numpy()
+    first = answer(p99, batches[0])
+    first_s = time.monotonic() - t0
+    check(step == 8 and np.isfinite(first).all(), f"served from step {step}")
+    _, lat = _timed_requests(lambda b: answer(p99, b), batches)
+    p50, p99_ms = lat[len(lat) // 2], lat[int(len(lat) * 0.99)]
+    torch.cuda.reset_peak_memory_stats()
+    first_bulk, bulk_lat = _timed_requests(lambda b: answer(bulk, b), bulk_np)
+    peak_bulk_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_bulk = bulk_np[0]["sparse_ids"].shape[0]
+    rows_s = n_bulk * len(bulk_lat) / (sum(bulk_lat) / 1e3)
+    check(first_bulk.shape == (n_bulk,) and np.isfinite(first_bulk).all()
+          and ((first_bulk >= 0) & (first_bulk <= 1)).all(),
+          "serve_bulk probabilities finite, in [0, 1], one a row")
+    bulk_split = _traced_split(lambda: answer(bulk, bulk_np[1]))
+    log(f"xdeepfm traced serve_bulk batch: {json.dumps(bulk_split)}")
+    n_fwd = p99_batches + 1 + bulk_batches + 1
+    check(eb.LAUNCHES.count == 2 * n_fwd,
+          f"embedding_bag launches {eb.LAUNCHES.count} == 2 x {n_fwd} forwards")
+    serve_launches = eb.LAUNCHES.count
+    b = batch_to_device(batches[0], p99.device)
+    k = xdeepfm.serve(params, b, p99.cfg)
+    p = xdeepfm.serve(params, b, p99.cfg, bag=eb.embedding_bag_fields_torch)
+    check(torch.equal(k, p), f"kernel vs plain probabilities bit-equal (H = 1): max "
+          f"|dp| {float((k - p).abs().max())}")
+    log(f"xdeepfm serve: restore of step {step} to the first answer {first_s:.2f} s; "
+        f"serve_p99 {p99_batches} batches of {batches[0]['sparse_ids'].shape[0]}: p50 "
+        f"{p50:.3f} ms, p99 {p99_ms:.3f} ms a batch (host arrays in, host probabilities "
+        f"out); serve_bulk {len(bulk_lat)} batches of {n_bulk} after one: "
+        f"{[round(t, 3) for t in bulk_lat]} ms, {rows_s:.0f} rows/s, peak device memory "
+        f"{peak_bulk_gb:.2f} GB; embedding_bag launches {serve_launches} (2 a forward); "
+        f"kernel vs plain probabilities bit-equal")
+
+    # (d) retrieval: the user's 39 fields and the candidates' field-0 bags,
+    # four launches a request, then the CIN and the MLP in chunks of 8,192
+    rbundle = get_cell("xdeepfm", "retrieval_cand", reduced=reduced, device=device)
+    C = rbundle.make_inputs()["candidate_ids"].shape[0]
+    n_scores = xdeepfm.n_retrieval_scores(C)
+    check(reduced or (C, n_scores) == (1_000_000, 999_424),
+          f"retrieval_cand scores {n_scores} of {C} candidates")
+    rbatches = [batch_for_cell(rbundle, 70_000 + i) for i in range(retrieval_requests + 1)]
+    eb.LAUNCHES.reset()
+    first, rlat = _timed_requests(lambda b: answer(rbundle, b), rbatches)
+    r_split = _traced_split(lambda: answer(rbundle, rbatches[1]))
+    log(f"xdeepfm traced retrieval request: {json.dumps(r_split)}")
+    r_launches = eb.LAUNCHES.count
+    check(r_launches == 4 * (retrieval_requests + 2),
+          f"retrieval embedding_bag launches {r_launches} == 4 x {retrieval_requests + 2}")
+    check(first.shape == (n_scores,) and np.isfinite(first).all()
+          and ((first >= 0) & (first <= 1)).all(),
+          f"retrieval probabilities finite, in [0, 1], {n_scores} of them")
+    b = batch_to_device(rbatches[0], rbundle.device)
+    k = xdeepfm.serve_retrieval(params, b, rbundle.cfg)
+    p = xdeepfm.serve_retrieval(params, b, rbundle.cfg, bag=eb.embedding_bag_fields_torch)
+    check(torch.equal(k, p), "retrieval kernel vs plain lookups bit-equal")
+    r50, r99 = rlat[len(rlat) // 2], rlat[int(len(rlat) * 0.99)]
+    retrieval = dict(candidates=C, scores=n_scores, requests=retrieval_requests,
+                     p50_ms=r50, p99_ms=r99, candidates_per_s=n_scores / (r50 / 1e3),
+                     launches_a_request=r_launches // (retrieval_requests + 2))
+    log(f"xdeepfm retrieval: {json.dumps(retrieval)}")
+    record_launches(kernels, "xdeepfm serve", {"embedding_bag": serve_launches})
+    record_launches(kernels, "xdeepfm retrieval", {"embedding_bag": r_launches})
+    del params
+    torch.cuda.empty_cache()
+    return dict(step_s=fig["step_s"], peak_train_gb=fig["peak_train_gb"], saves=saves,
+                restore_s=restore_s, first_answer_s=first_s, p50_ms=p50, p99_ms=p99_ms,
+                bulk_rows_s=rows_s, retrieval=retrieval, traced_step=fig["traced_step"],
+                traced_bulk=bulk_split, traced_retrieval=r_split)
+
+
+# ------------------------------------------------------------------ phase 7
+
+
+MIND_ITEMS = 1_000_448  # MIND's catalog, padded to 512
+
+
+def phase_mind(kernels, root, device="cuda", reduced=False, p99_batches=100,
+               bulk_batches=3, retrieval_requests=10):
+    """MIND at full width, no cut: train through 4-bit adaptive saves at 2
+    (full) and 4, a restore and a save at 6; serve from that chain and
+    retrieve (one user's interests against 1,000,000 candidates). Its
+    lookups are plain gathers, as the reference's ``jnp.take``: no kernel
+    runs in a forward; its saves run ``quant_pack`` and ``chunk_hash``.
+    Returns the trained item table (on the card) for the k-means phase."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_cell
+    from repro_torch.core import LocalFSStore
+    from repro_torch.core import manifest as mf
+    from repro_torch.data.cells import batch_for_cell
+    from repro_torch.kernels.embedding_bag import ops as eb
+    from repro_torch.train.loop import batch_to_device
+
+    bundle = get_cell("mind", "train_batch", reduced=reduced, device=device)
+    cfg = bundle.cfg
+    specs = bundle.make_inputs()
+    check(reduced or cfg.n_items == MIND_ITEMS and cfg.embed_dim == 64
+          and cfg.n_interests == 4 and cfg.capsule_iters == 3 and cfg.hist_len == 50
+          and cfg.compute_dtype == torch.bfloat16
+          and specs["hist"].shape == (65536, 50) and specs["neg_ids"].shape == (1024,),
+          "mind at full width")
+    log(f"mind full width: {cfg.n_items} items x {cfg.embed_dim}, {cfg.n_interests} "
+        f"interests, {cfg.capsule_iters} routing iterations, history {cfg.hist_len}, "
+        f"batch {specs['hist'].shape[0]}, {specs['neg_ids'].shape[0]} shared negatives")
+    tr, live, fig = _train_phase("mind", bundle, root, device, 4)
+    store = LocalFSStore(root)
+    steps = mf.list_steps(store)
+    check(steps == [2, 4], f"mind committed steps {steps}")
+    saves = _saved_steps(store, steps)
+    n_chunks = sum(v["chunks"] for v in saves.values())
+    check(saves[2]["kind"] == "full" and saves[2]["rows"] == cfg.n_items
+          and (reduced or saves[2]["chunks"] == 16), f"the first save is full: {saves[2]}")
+    check(saves[4]["kind"] != "full" and 0 < saves[4]["rows"] < cfg.n_items,
+          f"the second save is incremental: {saves[4]}")
+    check(fig["launches"] == {"quant_pack": n_chunks, "chunk_hash": n_chunks},
+          f"mind save launches {fig['launches']} == chunks written {n_chunks}")
+    log(f"mind traced step: {json.dumps(fig['traced_step'])}")
+    log(f"mind train: step times {fig['step_s']} s; peak device memory "
+        f"{fig['peak_train_gb']:.2f} GB; stalls {fig['stall_s']} s; save wall_s (whole, "
+        f"pipeline) {fig['save_walls']}; saves {json.dumps(saves)}; losses {fig['losses']}")
+    rs, restore_s, tr2, n6, resumed = _resume_and_save(bundle, root, fig["ckpt"], 4)
+    rel = float(np.abs(rs.tables["item_0"] - live["item_0"]).mean()
+                / np.abs(live["item_0"]).mean())
+    check(0 < rel < 0.1, f"4-bit restore error {rel} within the quantization bound")
+    trained = tr2.state.params["tables"]["item_0"]
+    check(not torch.equal(tr2.state.params["dense"]["routing_init"],
+                          tr.state.params["dense"]["routing_init"]),
+          "routing_init trained")
+    launches = {k: fig["launches"][k] + resumed[k] for k in resumed}
+    record_launches(kernels, "mind train", launches)
+    log(f"mind restore of step 4 (chain {rs.chain_len}) {restore_s:.2f} s, mean rel err "
+        f"{rel:.5f}; resumed losses {[round(h['loss'], 5) for h in tr2.history]}; step-6 "
+        f"save {n6} chunks; launches {launches}")
+    del tr, tr2, live, rs
+    torch.cuda.empty_cache()
+
+    p99 = get_cell("mind", "serve_p99", reduced=reduced, device=device)
+    bulk = get_cell("mind", "serve_bulk", reduced=reduced, device=device)
+    batches = [batch_for_cell(p99, 50_000 + i) for i in range(p99_batches)]
+    bulk_np = [batch_for_cell(bulk, 60_000 + i) for i in range(bulk_batches)]
+    eb.LAUNCHES.reset()
+    t0 = time.monotonic()
+    params, step, _ = _served_params(p99, root, device)
+    answer = lambda bnd, b: bnd.step_fn(params, batch_to_device(b, bnd.device)).cpu().numpy()
+    first = answer(p99, batches[0])
+    first_s = time.monotonic() - t0
+    check(step == 6 and first.shape == (batches[0]["hist"].shape[0],)
+          and np.isfinite(first).all(), f"served from step {step}")
+    _, lat = _timed_requests(lambda b: answer(p99, b), batches)
+    p50, p99_ms = lat[len(lat) // 2], lat[int(len(lat) * 0.99)]
+    first_bulk, bulk_lat = _timed_requests(lambda b: answer(bulk, b), bulk_np)
+    n_bulk = bulk_np[0]["hist"].shape[0]
+    rows_s = n_bulk * len(bulk_lat) / (sum(bulk_lat) / 1e3)
+    check(first_bulk.shape == (n_bulk,) and np.isfinite(first_bulk).all(),
+          "serve_bulk scores finite, one a row")
+    rbundle = get_cell("mind", "retrieval_cand", reduced=reduced, device=device)
+    C = rbundle.make_inputs()["candidate_ids"].shape[0]
+    check(reduced or C == 1_000_000, f"retrieval_cand scores {C} candidates")
+    rbatches = [batch_for_cell(rbundle, 70_000 + i) for i in range(retrieval_requests + 1)]
+    rfirst, rlat = _timed_requests(lambda b: answer(rbundle, b), rbatches)
+    check(rfirst.shape == (C,) and np.isfinite(rfirst).all(),
+          "retrieval scores finite, one a candidate")
+    check(eb.LAUNCHES.count == 0, f"no kernel in mind's forwards: {eb.LAUNCHES.count}")
+    r50, r99 = rlat[len(rlat) // 2], rlat[int(len(rlat) * 0.99)]
+    retrieval = dict(candidates=C, requests=retrieval_requests, p50_ms=r50, p99_ms=r99,
+                     candidates_per_s=C / (r50 / 1e3))
+    log(f"mind serve: restore of step {step} to the first answer {first_s:.2f} s; "
+        f"serve_p99 {p99_batches} batches of {batches[0]['hist'].shape[0]}: p50 "
+        f"{p50:.3f} ms, p99 {p99_ms:.3f} ms a batch (host arrays in, host scores out); "
+        f"serve_bulk {len(bulk_lat)} batches of {n_bulk} after one: "
+        f"{[round(t, 3) for t in bulk_lat]} ms, {rows_s:.0f} rows/s; retrieval "
+        f"{json.dumps(retrieval)}")
+    del params
+    torch.cuda.empty_cache()
+    return trained, dict(step_s=fig["step_s"], peak_train_gb=fig["peak_train_gb"],
+                         saves=saves, restore_s=restore_s, first_answer_s=first_s,
+                         p50_ms=p50, p99_ms=p99_ms, bulk_rows_s=rows_s,
+                         retrieval=retrieval)
+
+
+# ------------------------------------------------------------------ phase 8
+
+
+def phase_kmeans(kernels, trained, device="cuda", rows=MIND_ITEMS, check_rows=4096):
+    """The k-means quantizers (paper §4.2.2) at MIND's table shape: the
+    Fig. 5 orderings at 3 bits and 8 blocks on the reference test's skewed
+    rows (``tests/test_quantize.py``), made from a numpy seed at (1,000,448,
+    64); the card's k-means held to the same code on the CPU over the
+    first ``check_rows`` rows; each quantizer timed; and every method's
+    mean row L2 on ``trained`` (MIND's trained item table), logged only: a
+    table near its init is not skewed. The adaptive arm is the
+    ``adaptive_quant`` kernel op, one launch a call."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (dequantize, kmeans_block_quantize,
+                                  kmeans_clustered_quantize, kmeans_dequantize,
+                                  kmeans_quantize, mean_l2_loss, uniform_quantize)
+    from repro_torch.kernels.adaptive_quant import ops as aq
+
+    r = np.random.default_rng(0)
+    x = torch.from_numpy((r.normal(size=(rows, 64)) *
+                          r.gamma(1.0, 1.0, size=(rows, 1))).astype(np.float32)).to(device)
+    bits = 3
+    methods = {
+        "sym": lambda t: dequantize(uniform_quantize(t, bits, True)),
+        "asym": lambda t: dequantize(uniform_quantize(t, bits, False)),
+        "adaptive": lambda t: dequantize(aq.adaptive_quant(t, bits=bits, num_bins=25,
+                                                           ratio=0.2)),
+        "kmeans": lambda t: kmeans_dequantize(kmeans_quantize(t, bits)),
+        "kmeans_blocks": lambda t: kmeans_dequantize(kmeans_block_quantize(t, bits, 8)),
+        "kmeans_clustered": lambda t: kmeans_dequantize(
+            kmeans_clustered_quantize(t, bits, 8)),
+    }
+    aq.ADAPTIVE_QUANT_LAUNCHES.reset()
+    l2, ms = {}, {}
+    for name, fn in methods.items():
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        deq = fn(x)
+        end.record()
+        end.synchronize()
+        ms[name] = start.elapsed_time(end)
+        l2[name] = float(mean_l2_loss(x, deq))
+        del deq
+    launches = aq.ADAPTIVE_QUANT_LAUNCHES.count
+    check(launches == 1, f"adaptive_quant launches {launches}")
+    check(l2["asym"] < l2["sym"] and l2["adaptive"] < l2["asym"]
+          and abs(l2["kmeans"] - l2["adaptive"]) / l2["adaptive"] < 0.25
+          and l2["kmeans_blocks"] > l2["asym"] and l2["kmeans_clustered"] < l2["kmeans_blocks"],
+          f"Fig. 5 orderings at ({rows}, 64), 3 bits: {l2}")
+    log(f"k-means at ({rows}, 64), 3 bits, 8 blocks: mean row L2 {json.dumps(l2)}; "
+        f"one call each, ms (CUDA events, the first call) {json.dumps(ms)}")
+
+    # the card against the CPU on the first rows
+    xs = x[:check_rows]
+    agree = {}
+    for name, fn in (("kmeans", lambda t: kmeans_quantize(t, bits)),
+                     ("kmeans_blocks", lambda t: kmeans_block_quantize(t, bits, 8)),
+                     ("kmeans_clustered", lambda t: kmeans_clustered_quantize(t, bits, 8))):
+        got, want = fn(xs), fn(xs.cpu())
+        books = want.codebook.numpy()
+        gb = got.codebook.cpu().numpy()
+        check(np.allclose(gb, books, rtol=1e-5, atol=1e-6),
+              f"{name}: card codebook vs CPU, max |d| {float(np.abs(gb - books).max())}")
+        if want.block_ids is not None:
+            check(torch.equal(got.block_ids.cpu(), want.block_ids), f"{name}: block ids")
+            books = books[want.block_ids.numpy()]
+        differ = got.codes.cpu().numpy() != want.codes.numpy()
+        d = np.sort(np.abs(xs.cpu().numpy()[..., None] - books[:, None, :]), -1)
+        ties = bool(np.all((d[..., 1] - d[..., 0])[differ] <= 1e-6))
+        agree[name] = dict(codebook_max_abs=float(np.abs(gb - want.codebook.numpy()).max()),
+                           code_diff_frac=float(differ.mean()), differ_only_at_ties=ties)
+        check(differ.mean() <= 2e-3 and ties, f"{name}: card codes vs CPU {agree[name]}")
+    log(f"k-means, the card vs the CPU on {check_rows} rows: {json.dumps(agree)}")
+    del x, xs
+    trained_l2 = {name: float(mean_l2_loss(trained, fn(trained)))
+                  for name, fn in methods.items()}
+    launches = aq.ADAPTIVE_QUANT_LAUNCHES.count
+    check(launches == 2, f"adaptive_quant launches after the trained table {launches}")
+    log(f"3-bit mean row L2 on MIND's trained item table {tuple(trained.shape)} (no "
+        f"ordering asserted): {json.dumps(trained_l2)}")
+    record_launches(kernels, "k-means", {"adaptive_quant": launches})
+    torch.cuda.empty_cache()
+    return dict(l2=l2, ms=ms, card_vs_cpu=agree, trained_l2=trained_l2)
+
+
+# ------------------------------------------------------------------ phase 9
+
+
+def phase_recovery_experiment(device="cuda"):
+    """The CPR-versus-full loss experiment (paper §3.4) on its reduced
+    dlrm-rm2 cell, on the card: ``run_experiment(device=...)``."""
+    from repro_torch.train.recovery_experiment import run_experiment
+
+    t0 = time.monotonic()
+    r = run_experiment(device=device)
+    wall = time.monotonic() - t0
+    rec = r["cpr_recovery"]
+    check(r["within_bound"], f"cpr vs full delta {r['max_cpr_vs_full_rel_delta']} "
+          f"within {r['bound']}")
+    check(rec.get("kind") == "partial", f"cpr recovery {rec}")
+    check(0 < rec["bytes_read"] < r["full_restore_bytes"],
+          f"cpr read {rec['bytes_read']} B, a full restore {r['full_restore_bytes']} B")
+    out = dict(max_cpr_vs_full_rel_delta=r["max_cpr_vs_full_rel_delta"], bound=r["bound"],
+               cpr_bytes_read=rec["bytes_read"], full_restore_bytes=r["full_restore_bytes"],
+               cpr_wall_s=rec["wall_s"], committed_step=r["committed_step"], wall_s=wall)
+    log(f"recovery experiment: {json.dumps(out)}")
+    return out
 
 
 def main(argv=None) -> int:
@@ -2282,8 +2841,25 @@ def main(argv=None) -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
     t0 = time.monotonic()
+    phase_s, last = {}, [t0]
+
+    def mark(name):
+        """Log the seconds since the previous mark as phase ``name``'s."""
+        now = time.monotonic()
+        phase_s[name] = round(now - last[0], 1)
+        last[0] = now
+
+    def in_tempdir(tag, fn, *args):
+        root = tempfile.mkdtemp(prefix=f"cnr-chip-smoke-{tag}-")
+        try:
+            return fn(*args, root)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+            mark(tag)
+
     card = phase_device()
     kernels = phase_kernels()
+    mark("device and kernels")
     if not args.kernels_only:
         root = tempfile.mkdtemp(prefix="cnr-chip-smoke-")
         trainer = None
@@ -2297,23 +2873,20 @@ def main(argv=None) -> int:
             if trainer is not None:
                 trainer.close()
             shutil.rmtree(root, ignore_errors=True)
-        root = tempfile.mkdtemp(prefix="cnr-chip-smoke-sharded-")
-        try:
-            phase_sharded(kernels, root, single_host)
-        finally:
-            shutil.rmtree(root, ignore_errors=True)
-        root = tempfile.mkdtemp(prefix="cnr-chip-smoke-mp-")
-        try:
-            phase_multiprocess(kernels, root)
-        finally:
-            shutil.rmtree(root, ignore_errors=True)
-        root = tempfile.mkdtemp(prefix="cnr-chip-smoke-b4r-")
-        try:
-            phase_bert4rec(kernels, root)
-        finally:
-            shutil.rmtree(root, ignore_errors=True)
+            mark("dlrm-rm2")
+        in_tempdir("sharded", lambda root: phase_sharded(kernels, root, single_host))
+        in_tempdir("mp", phase_multiprocess, kernels)
+        in_tempdir("b4r", phase_bert4rec, kernels)
+        in_tempdir("xdeepfm", phase_xdeepfm, kernels)
+        trained, _ = in_tempdir("mind", phase_mind, kernels)
+        phase_kmeans(kernels, trained)
+        del trained
+        mark("k-means")
+        phase_recovery_experiment()
+        mark("recovery experiment")
         for k in kernels:
             check(k["launches"] > 0, f"{k['name']} ran on its path")
+    log(f"seconds by phase: {json.dumps(phase_s)}")
     log(f"total {time.monotonic() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -2,10 +2,11 @@
 
 A CellBundle is everything one cell needs: the step callable, the input
 specs, the tracked specs for Check-N-Run, the optimizer, and the device it
-all lives on. The train cells (dlrm-rm2's sparse DLRM step, bert4rec's
-generic step), serve cells (``serve_p99``, ``serve_bulk``) and retrieval
-cell (``retrieval_cand``: one user against C candidates) of dlrm-rm2 and
-bert4rec are ported; the other archs and families come with later slices.
+all lives on. The recsys family is ported whole: the train cells
+(dlrm-rm2's sparse DLRM step, the generic autograd step for xdeepfm, mind
+and bert4rec), the serve cells (``serve_p99``, ``serve_bulk``) and the
+retrieval cell (``retrieval_cand``: one user against C candidates) of its
+four archs. The gnn and LM families come with later slices.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import torch
 from ..device import resolve_device
 from ..models import bert4rec as m_bert4rec
 from ..models import dlrm as m_dlrm
+from ..models import mind as m_mind
+from ..models import xdeepfm as m_xdeepfm
 from ..optim.optimizers import adagrad, rowwise_adagrad, split_optimizer
 from ..train.state import TrackedSpec, TrainState, init_train_state, rng_key_data
 from ..train.steps import make_train_step
@@ -55,18 +58,25 @@ class CellBundle:
                                 rng_key_data(1), self.device)
 
 
-_RECSYS_MODULES = {"dlrm-rm2": m_dlrm, "bert4rec": m_bert4rec}
+_RECSYS_MODULES = {"dlrm-rm2": m_dlrm, "xdeepfm": m_xdeepfm, "mind": m_mind,
+                   "bert4rec": m_bert4rec}
 
 
 def _recsys_inputs(arch: str, cfg, B: int, kind: str, reduced: bool):
     """Input specs per recsys arch and cell kind (the reference's
     ``_recsys_stream``, with its serve overrides)."""
-    if arch == "dlrm-rm2":
+    if arch in ("dlrm-rm2", "xdeepfm"):
         d = dict(sparse_ids=InputSpec((B, cfg.n_sparse, cfg.multi_hot), np.int32))
         if kind == "train":
             d["label"] = InputSpec((B,), np.float32)
-        if cfg.n_dense:
+        if getattr(cfg, "n_dense", 0):
             d["dense"] = InputSpec((B, cfg.n_dense), np.float32)
+        return d
+    if arch == "mind":
+        d = dict(hist=InputSpec((B, cfg.hist_len), np.int32),
+                 target=InputSpec((B,), np.int32))
+        if kind == "train":
+            d["neg_ids"] = InputSpec((128 if reduced else 1024,), np.int32)
         return d
     items = InputSpec((B, cfg.seq_len), np.int32)
     if kind == "serve":
@@ -92,8 +102,8 @@ def recsys_cell(arch: str, cfg, shape: str, reduced: bool = False,
     if arch not in _RECSYS_MODULES:
         raise NotImplementedError(
             f"({arch}, {shape}) is not ported yet: only "
-            f"{sorted(_RECSYS_MODULES)} are; the other archs come with "
-            f"ROADMAP A6")
+            f"{sorted(_RECSYS_MODULES)} are; dimenet and the LMs come with "
+            f"ROADMAP A6.3-A6.5")
     dev = resolve_device(device)
     mod = _RECSYS_MODULES[arch]
     B = spec["batch"]
@@ -104,10 +114,10 @@ def recsys_cell(arch: str, cfg, shape: str, reduced: bool = False,
         step_fn = m_dlrm.make_sparse_train_step(cfg, adagrad(0.01))
     elif kind == "train":
         # bert4rec's full batch accumulates over 4 micro-batches, as the
-        # reference's does
+        # reference's does; the other archs take the batch whole
         step_fn = make_train_step(
             lambda params, batch: mod.train_loss(params, batch, cfg), optimizer,
-            n_micro=4 if (not reduced and B >= 65536) else 1)
+            n_micro=4 if (arch == "bert4rec" and not reduced and B >= 65536) else 1)
     elif kind == "serve":
         step_fn = lambda params, batch: mod.serve(params, batch, cfg)
     elif kind == "retrieval":

@@ -1,5 +1,7 @@
-"""Assigned input-shape sets. The recsys shapes are ported; the other
-families come with later slices."""
+"""Assigned input-shape sets: the recsys family's four shapes, which all
+four recsys archs take (xdeepfm, dlrm-rm2, mind, bert4rec). The reference's
+gnn and LM shape sets and its ``FAMILY_SHAPES`` map come with dimenet and
+the transformer LMs (ROADMAP A6.3-A6.5)."""
 
 from __future__ import annotations
 

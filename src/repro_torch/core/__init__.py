@@ -15,6 +15,27 @@ from .coordinator import (
     build_manifest,
     try_commit,
 )
+from .integrity import (
+    ChunkCorruptionError,
+    Problem,
+    ResumePlan,
+    ScanReport,
+    StepReport,
+    plan_resume,
+    quarantine_step,
+    quarantined_steps,
+    scan_step,
+    scan_store,
+    verify_chunk_bytes,
+)
+from .manifest import CommitRaceError, commit_once
+from .metrics import (
+    ManagerMetrics,
+    render_prometheus,
+    store_metrics,
+    write_textfile,
+)
+from .pipeline import PipelineStats, RestorePipeline, StagePipeline, WritePipeline
 from .incremental import (
     ConsecutiveIncrement,
     FullOnly,
@@ -23,21 +44,18 @@ from .incremental import (
     OneShotBaseline,
     make_policy,
 )
-from .integrity import (
-    ChunkCorruptionError,
-    ScanReport,
-    plan_resume,
-    quarantine_step,
-    scan_step,
-    scan_store,
-    verify_chunk_bytes,
-)
 from .quantize import (
     PAPER_DEFAULTS,
+    KmeansQuantized,
     QuantConfig,
     Quantized,
     adaptive_quantize,
     dequantize,
+    kmeans_block_quantize,
+    kmeans_clustered_quantize,
+    kmeans_dequantize,
+    kmeans_quantize,
+    mean_l2_loss,
     quantize,
     uniform_quantize,
 )

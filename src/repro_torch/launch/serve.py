@@ -8,7 +8,8 @@ staleness. Each refresh is a full ``restore()``, because the whole model
 is rebuilt; replicas that serve embeddings only use the delta subscriber
 (``repro_torch.serve``), which pays touched-row bytes per refresh.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch dlrm-rm2|bert4rec \
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch xdeepfm|dlrm-rm2|mind|bert4rec \
       --ckpt-dir CKPT_DIR --requests 200 --batch 64 --refresh-every 50 \
       [--reduced | --full-config] [--vocab-cap ROWS] [--device cuda|cpu]
 
@@ -16,8 +17,8 @@ Serves the ``serve_p99`` cell on the card (``--device cuda``, the default)
 and raises when there is none; ``--device cpu`` runs the same path on the
 CPU. ``--full-config`` and ``--vocab-cap`` must match the train launcher's
 flags that wrote the chain, so the tables have the same shapes. dlrm-rm2
-answers click probabilities, bert4rec next-item scores for 100 candidates
-per request.
+and xdeepfm answer click probabilities, mind a score per (history,
+target) pair, bert4rec next-item scores for 100 candidates per request.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ import time
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="dlrm-rm2")
+    ap.add_argument("--arch", default="dlrm-rm2",
+                    help="xdeepfm, dlrm-rm2, mind or bert4rec")
     ap.add_argument("--ckpt-dir", required=True)
     ap.add_argument("--requests", type=int, default=200)
     ap.add_argument("--batch", type=int, default=64)
@@ -51,7 +53,7 @@ def main(argv=None):
     # serve_p99 is the online-inference cell of every recsys arch
     bundle = get_cell(args.arch, "serve_p99", reduced=args.reduced,
                       device=args.device, vocab_cap=args.vocab_cap)
-    answers = "scores" if args.arch == "bert4rec" else "probabilities"
+    answers = "scores" if args.arch in ("bert4rec", "mind") else "probabilities"
     store = LocalFSStore(args.ckpt_dir)
     if mf.latest_step(store) is None:
         print(f"no checkpoints in {args.ckpt_dir}; run repro_torch.launch.train first")

@@ -1,6 +1,7 @@
 """Training launcher CLI.
 
-  PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-rm2|bert4rec \
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --arch xdeepfm|dlrm-rm2|mind|bert4rec \
       --shape train_batch --steps 100 --interval 20 --bits 4 \
       --policy intermittent --ckpt-dir CKPT_DIR [--reduced | --full-config] \
       [--vocab-cap ROWS] [--fail-at 60] [--device cuda|cpu]
@@ -17,7 +18,8 @@ import sys
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="xdeepfm, dlrm-rm2, mind or bert4rec")
     ap.add_argument("--shape", required=True)
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--interval", type=int, default=20)

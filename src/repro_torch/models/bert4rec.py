@@ -18,11 +18,10 @@ import functools
 from typing import Callable, Dict, Optional
 
 import torch
-import torch.nn.functional as F
 
 from ..kernels.flash_attention import flash_attention
 from ..train.state import TrackedSpec
-from .embedding import init_tables, table_specs
+from .embedding import init_tables, table_specs, take
 from .layers import chunked_attention, dense_init, gelu, layernorm
 
 
@@ -74,17 +73,6 @@ def tracked_specs(cfg: Bert4RecConfig) -> Dict[str, TrackedSpec]:
     return table_specs((cfg.n_items,), cfg.embed_dim, prefix="item")
 
 
-def _take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``jnp.take(table, ids, axis=0)`` for a (V, D) or (V,) table. Its
-    backward sums repeated ids' gradients by sort and segment sum
-    (``F.embedding``); advanced indexing's backward serializes them, and
-    the zipf-skewed item ids of a training batch repeat by the thousand."""
-    ids = ids.to(torch.int64)
-    if table.dim() == 1:
-        return F.embedding(ids, table[:, None])[..., 0]
-    return F.embedding(ids, table)
-
-
 def _project(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,dhk->bshk")`` as one (B*S, d) x (d, H*Dh) product:
     the result is contiguous, unit stride along the head dim."""
@@ -99,7 +87,7 @@ def encode(params, items: torch.Tensor, cfg: Bert4RecConfig,
     attention through ``attention(q, k, v, causal=False)``."""
     cd = cfg.compute_dtype
     S = items.shape[1]
-    x = _take(params["tables"]["item_0"], items).to(cd)
+    x = take(params["tables"]["item_0"], items).to(cd)
     x = x + params["dense"]["pos_emb"][None, :S].to(cd)
     blocks = params["dense"]["blocks"]
     for i in range(cfg.n_blocks):
@@ -128,10 +116,10 @@ def train_loss(params, batch, cfg: Bert4RecConfig):
     h = encode(params, items, cfg, _train_attention).to(torch.float32)   # (B,S,D)
     table, bias = params["tables"]["item_0"], params["dense"]["out_bias"]
     lab = labels.to(torch.int64)
-    e_pos = _take(table, lab).to(torch.float32)          # (B,S,D)
-    e_neg = _take(table, negs).to(torch.float32)         # (N,D)
-    b_pos = _take(bias, lab)
-    b_neg = _take(bias, negs)
+    e_pos = take(table, lab).to(torch.float32)          # (B,S,D)
+    e_neg = take(table, negs).to(torch.float32)         # (N,D)
+    b_pos = take(bias, lab)
+    b_neg = take(bias, negs)
     pos = torch.einsum("bsd,bsd->bs", h, e_pos) + b_pos
     neg = torch.einsum("bsd,nd->bsn", h, e_neg) + b_neg
     logits = torch.cat([pos[..., None], neg], dim=-1)    # (B,S,1+N)
@@ -149,8 +137,8 @@ def train_loss(params, batch, cfg: Bert4RecConfig):
 
 def _scores(params, items, cand, cfg, attention):
     h = encode(params, items, cfg, attention)[:, -1].to(torch.float32)   # (B,D)
-    e = _take(params["tables"]["item_0"], cand).to(torch.float32)       # (B,C,D)
-    b = _take(params["dense"]["out_bias"], cand)
+    e = take(params["tables"]["item_0"], cand).to(torch.float32)       # (B,C,D)
+    b = take(params["dense"]["out_bias"], cand)
     return torch.einsum("bd,bcd->bc", h, e) + b
 
 
@@ -182,5 +170,5 @@ def serve_retrieval(params, batch, cfg: Bert4RecConfig,
     with torch.no_grad():
         h = encode(params, batch["items"], cfg, attention)[0, -1].to(torch.float32)
         cand = batch["candidate_ids"]                                  # (C,)
-        e = _take(params["tables"]["item_0"], cand).to(torch.float32)   # (C, D)
-        return e @ h + _take(params["dense"]["out_bias"], cand)
+        e = take(params["tables"]["item_0"], cand).to(torch.float32)   # (C, D)
+        return e @ h + take(params["dense"]["out_bias"], cand)

@@ -13,6 +13,7 @@ from typing import Dict, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..kernels.embedding_bag import embedding_bag_fields
 from ..train.state import TrackedSpec
@@ -41,6 +42,65 @@ def table_specs(vocab_sizes: Sequence[int], dim: int,
     }
 
 
+def take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(table, ids, axis=0)`` for a (V, D) or (V,) table. Its
+    backward sums repeated ids' gradients by sort and segment sum
+    (``F.embedding``); advanced indexing's backward serializes them, and
+    the zipf-skewed ids of a training batch repeat by the thousand."""
+    ids = ids.to(torch.int64)
+    if table.dim() == 1:
+        return F.embedding(ids, table[:, None])[..., 0]
+    return F.embedding(ids, table)
+
+
+def take_fields(tables: Sequence[torch.Tensor], ids: torch.Tensor) -> torch.Tensor:
+    """The multi-field lookup as differentiable tensor ops, for training:
+    each field's rows by ``take``, summed over H in f32, stacked and cast
+    to bf16 — the numbers of ``embedding_bag_fields_torch``, with the
+    backward that ``take`` gives (the kernel has none). It stays apart
+    from that function, which is the kernel's plain version and is left as
+    the kernel is held to it: its advanced indexing is the gather the
+    kernel does, and its backward would serialize a batch's repeated ids."""
+    return torch.stack([take(t, ids[:, f, :]).sum(dim=-2, dtype=torch.float32)
+                        for f, t in enumerate(tables)], dim=1).to(torch.bfloat16)
+
+
+def embedding_bag(table: torch.Tensor, ids: torch.Tensor, mode: str = "sum",
+                  weights=None) -> torch.Tensor:
+    """Dense multi-hot bag: ids (..., H) → (..., dim). EmbeddingBag-sum/mean/
+    max built from a gather and a reduce over the bag, as the reference's
+    (plain tensor ops; the kernel path is ``lookup_fields``)."""
+    emb = table[ids.to(torch.int64)]  # (..., H, D)
+    if weights is not None:
+        emb = emb * weights[..., None]
+    if mode == "sum":
+        return emb.sum(dim=-2)
+    if mode == "mean":
+        return emb.mean(dim=-2)
+    if mode == "max":
+        return emb.amax(dim=-2)
+    raise ValueError(mode)
+
+
+def ragged_embedding_bag(table: torch.Tensor, values: torch.Tensor,
+                         offsets: torch.Tensor, num_bags: int,
+                         mode: str = "sum") -> torch.Tensor:
+    """torch-style ragged EmbeddingBag: values (nnz,), offsets (num_bags+1,).
+    Value i belongs to bag ``searchsorted(offsets[1:], i, right=True)``; a
+    value past the last bag is dropped, as the reference's segment sum
+    drops it. ``mean`` divides by ``max(count, 1)``."""
+    emb = table[values.to(torch.int64)]  # (nnz, D)
+    pos = torch.arange(values.shape[0], device=values.device)
+    bag_ids = torch.searchsorted(offsets[1:].to(torch.int64), pos, right=True)
+    keep = bag_ids < num_bags
+    out = torch.zeros((num_bags,) + tuple(emb.shape[1:]), dtype=emb.dtype,
+                      device=emb.device).index_add_(0, bag_ids[keep], emb[keep])
+    if mode == "mean":
+        counts = offsets[1:] - offsets[:-1]
+        out = out / torch.clamp(counts[:, None], min=1)
+    return out
+
+
 def lookup_fields(tables: Dict[str, torch.Tensor], ids: torch.Tensor,
                   prefix: str = "emb", bag=embedding_bag_fields) -> torch.Tensor:
     """Multi-field lookup: ids (B, F, H) → (B, F, D) bf16 (bag-sum over H),
@@ -49,7 +109,8 @@ def lookup_fields(tables: Dict[str, torch.Tensor], ids: torch.Tensor,
     ``embedding_bag_fields``, on a card one kernel launch, which has no
     backward, so this is the forward of serving (and of ``train_loss`` on
     the CPU). Pass ``embedding_bag_fields_torch`` to hold the kernel
-    against the plain version."""
+    against the plain version, or ``take_fields`` for a differentiable
+    lookup on a card."""
     return bag([tables[f"{prefix}_{f}"] for f in range(ids.shape[1])], ids)
 
 

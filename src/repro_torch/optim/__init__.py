@@ -1,8 +1,10 @@
 from .optimizers import (
     Optimizer,
     adagrad,
+    adamw,
     apply_updates,
     rowwise_adagrad,
+    sgd,
     split_optimizer,
 )
 

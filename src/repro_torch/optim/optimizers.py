@@ -2,7 +2,7 @@
 
 The DLRM-standard split (paper §2.2): embedding tables use **row-wise
 AdaGrad** (one accumulator per row — the per-row state is checkpointed
-incrementally together with its rows), dense parameters use AdaGrad.
+incrementally together with its rows), dense parameters use AdaGrad/AdamW.
 
 An ``Optimizer`` is an (init, update) pair over a tree; ``update`` returns
 *additive* updates and allocates new tensors, as the reference's do. The
@@ -16,12 +16,28 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from ..tree import tree_map
+from ..tree import flatten_with_path, tree_map
 
 
 class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any], tuple]  # (grads, state, params) -> (updates, state)
+
+
+def sgd(lr: float, momentum: float = 0.0) -> Optimizer:
+    def init(params):
+        if momentum == 0.0:
+            return ()
+        return tree_map(torch.zeros_like, params)
+
+    def update(grads, state, params):
+        del params
+        if momentum == 0.0:
+            return tree_map(lambda g: -lr * g, grads), state
+        new_m = tree_map(lambda m, g: momentum * m + g, state, grads)
+        return tree_map(lambda m: -lr * m, new_m), new_m
+
+    return Optimizer(init, update)
 
 
 def adagrad(lr: float, eps: float = 1e-8) -> Optimizer:
@@ -34,6 +50,37 @@ def adagrad(lr: float, eps: float = 1e-8) -> Optimizer:
         upd = tree_map(lambda g, a: -lr * g / (torch.sqrt(a) + eps),
                        grads, new_acc)
         return upd, new_acc
+
+    return Optimizer(init, update)
+
+
+def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+          weight_decay: float = 0.0) -> Optimizer:
+    """AdamW with the reference's arithmetic: ``count`` an int32 scalar,
+    the bias corrections ``1 - b ** count`` in f32, and the weight decay
+    added to the step before it is scaled by ``-lr``."""
+
+    def init(params):
+        leaves = [p for _, p in flatten_with_path(params)]
+        device = leaves[0].device if leaves else None
+        zeros = lambda: tree_map(torch.zeros_like, params)
+        return dict(mu=zeros(), nu=zeros(),
+                    count=torch.zeros((), dtype=torch.int32, device=device))
+
+    def update(grads, state, params):
+        count = state["count"] + 1
+        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state["mu"], grads)
+        nu = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g), state["nu"], grads)
+        n = count.to(torch.float32)
+        c1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=n.device), n)
+        c2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=n.device), n)
+
+        def leaf(m, v, p):
+            step = m / c1 / (torch.sqrt(v / c2) + eps)
+            return -lr * (step + weight_decay * p)
+
+        upd = tree_map(leaf, mu, nu, params)
+        return upd, dict(mu=mu, nu=nu, count=count)
 
     return Optimizer(init, update)
 

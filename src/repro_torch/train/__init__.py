@@ -4,6 +4,7 @@ from .state import (
     TrainState,
     init_train_state,
     restore_train_state,
+    splice_shard_state,
     state_from_numpy,
     state_to_snapshot,
 )

@@ -20,6 +20,7 @@ on rows at rounding ties.
 """
 
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -802,3 +803,110 @@ def test_multiprocess_save_on_the_card_reports_its_launches(cuda, tmp_path):
         np.testing.assert_array_equal(a.tables[n], b.tables[n])
     mgr.close()
     inproc.close()
+
+
+# xDeepFM's saves: chunks of its dim-10 emb_* and dim-1 lin_* tables, at the
+# save's full chunk of 65,536 rows and a ragged tail
+@pytest.mark.parametrize("rows,dim", [(65536, 10), (65536, 1), (1000, 10), (333, 1),
+                                      (1, 1)])
+@pytest.mark.parametrize("method,bits", [("uniform_asym", b) for b in range(1, 9)]
+                         + [("adaptive", b) for b in (2, 3, 4)])
+def test_quant_pack_at_dims_10_and_1(cuda, rows, dim, method, bits):
+    """The masked (part-filled lanes) route at xDeepFM's table widths:
+    uniform words byte-identical to the plain version, adaptive within
+    the bars; a dim-1 row has no range, so its scale is 1 and its code 0."""
+    from repro_torch.kernels.adaptive_quant import ops
+
+    x = _rows(rows, dim, cuda, seed=rows + dim + bits)
+    nb, ns = ops._resolve_steps(method, bits, None, None)
+    k = ops.quant_pack_cuda(x, bits=bits, num_bins=nb, n_steps=ns)
+    p = ops.quant_pack_torch(x, bits=bits, num_bins=nb, n_steps=ns)
+    assert k.words.shape == p.words.shape and k.count == p.count
+    if method == "uniform_asym":
+        np.testing.assert_array_equal(k.words.cpu().numpy(), p.words.cpu().numpy())
+    else:
+        np.testing.assert_allclose(k.scale.cpu().numpy(), p.scale.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-7)
+        np.testing.assert_allclose(k.zero.cpu().numpy(), p.zero.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-7)
+        assert (_codes(k) != _codes(p)).mean() <= 2e-3
+    if dim == 1:
+        assert bool((k.scale == 1).all()) and not _codes(k).any()
+        assert torch.equal(k.zero, x[:, 0])
+
+
+@pytest.mark.parametrize("D", [10, 1])
+@pytest.mark.parametrize("B", [1, 512, 4096])
+def test_embedding_bag_fields_at_xdeepfm_shapes(cuda, D, B):
+    """xDeepFM's lookup: 39 fields in one launch at D = 10 and D = 1 (the
+    scalar route), over its real vocabularies (10,000,384 rows at the
+    largest); bit-equal to the plain version (H = 1)."""
+    from repro_torch.configs.xdeepfm import XDEEPFM_VOCABS
+    from repro_torch.kernels.embedding_bag import ops
+
+    gen = torch.Generator(device=cuda).manual_seed(D + B)
+    tables = [torch.randn((v, D), generator=gen, device=cuda) for v in XDEEPFM_VOCABS]
+    ids = torch.stack([torch.randint(0, v, (B, 1), generator=gen, device=cuda)
+                       for v in XDEEPFM_VOCABS], dim=1).to(torch.int32)
+    ids[0, :, 0] = torch.tensor([v - 1 for v in XDEEPFM_VOCABS], device=cuda)  # last rows
+    before = ops.LAUNCHES.count
+    got = ops.embedding_bag_fields(tables, ids)
+    assert ops.LAUNCHES.count == before + 1
+    assert got.shape == (B, 39, D) and torch.equal(got, ops.embedding_bag_fields_torch(
+        tables, ids))
+
+
+def test_xdeepfm_serving_launches_twice_per_forward(cuda):
+    """A reduced xDeepFM serve batch and a retrieval request on the card:
+    the serve forward is two ``embedding_bag`` launches (emb_* and lin_*),
+    its probabilities bit-equal to the plain lookups' (H = 1 lookups are
+    the rows themselves); a retrieval request four (the user's two, the
+    candidates' two)."""
+    from repro_torch.configs import get_cell
+    from repro_torch.data.cells import batch_for_cell
+    from repro_torch.kernels.embedding_bag import ops as eb
+    from repro_torch.models import xdeepfm
+    from repro_torch.train.loop import batch_to_device
+
+    params = get_cell("xdeepfm", "train_batch", reduced=True, device=cuda).make_state().params
+    p99 = get_cell("xdeepfm", "serve_p99", reduced=True, device=cuda)
+    b = batch_to_device(batch_for_cell(p99, 0), cuda)
+    eb.LAUNCHES.reset()
+    got = p99.step_fn(params, b)
+    assert eb.LAUNCHES.count == 2
+    assert torch.equal(got, xdeepfm.serve(params, b, p99.cfg,
+                                          bag=eb.embedding_bag_fields_torch))
+    r = get_cell("xdeepfm", "retrieval_cand", reduced=True, device=cuda)
+    rb = batch_to_device(batch_for_cell(r, 0), cuda)
+    eb.LAUNCHES.reset()
+    got = r.step_fn(params, rb)
+    assert eb.LAUNCHES.count == 4 and got.shape == (512,)
+    assert torch.equal(got, xdeepfm.serve_retrieval(params, rb, r.cfg,
+                                                    bag=eb.embedding_bag_fields_torch))
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4])
+@pytest.mark.parametrize("method", ["per_vector", "blocks", "clustered"])
+def test_kmeans_on_the_card_matches_the_cpu(cuda, method, bits):
+    """The k-means quantizers on the card against the same code on the
+    CPU: codebooks within rtol 1e-5 / atol 1e-6 (the card's segment sums
+    are f64 atomics, added in no fixed order and rounded to f32 once, so
+    they may still differ from the CPU's in a last bit), codes equal but at
+    ties (the two nearest centroids within 1e-6), at most 2e-3 of them."""
+    q = importlib.import_module("repro_torch.core.quantize")
+
+    fn = {"per_vector": lambda x: q.kmeans_quantize(x, bits),
+          "blocks": lambda x: q.kmeans_block_quantize(x, bits, n_blocks=8),
+          "clustered": lambda x: q.kmeans_clustered_quantize(x, bits, n_blocks=8)}[method]
+    x = _rows(4096, 64, cuda, seed=bits)
+    got, want = fn(x), fn(x.cpu())
+    books = want.codebook.numpy()
+    np.testing.assert_allclose(got.codebook.cpu().numpy(), books, rtol=1e-5, atol=1e-6)
+    if want.block_ids is not None:
+        assert torch.equal(got.block_ids.cpu(), want.block_ids)
+        books = books[want.block_ids.numpy()]
+    differ = got.codes.cpu().numpy() != want.codes.numpy()
+    assert differ.mean() <= 2e-3
+    if differ.any():
+        d = np.sort(np.abs(x.cpu().numpy()[..., None] - books[:, None, :]), -1)
+        assert np.all((d[..., 1] - d[..., 0])[differ] <= 1e-6)

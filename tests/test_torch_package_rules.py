@@ -5,7 +5,8 @@
   module, runs a tiny CPU save→restore and inspects ``sys.modules``).
 * The entry points that run as their own processes
   (``python -m repro_torch.dist.host_proc``, ``python -m
-  repro_torch.launch.ckpt``) run in a fresh interpreter without either.
+  repro_torch.launch.ckpt``) run in a fresh interpreter without either,
+  and so do the k-means quantizers and the MIND and xDeepFM cells.
 * ``device="cuda"`` without a card raises; nothing falls back to the CPU.
 """
 
@@ -131,6 +132,42 @@ def test_host_process_and_cli_run_without_jax(tmp_path):
     assert out.stdout.strip().endswith("OK")
 
 
+def test_kmeans_and_the_mind_and_xdeepfm_cells_run_without_jax():
+    """The k-means quantizers and a step of each reduced MIND and xDeepFM
+    cell (train, serve, retrieval) in one fresh interpreter that never
+    imports JAX or the reference."""
+    code = textwrap.dedent("""
+        import sys
+        import torch
+        from repro_torch.configs import get_cell
+        from repro_torch.core import (kmeans_block_quantize, kmeans_clustered_quantize,
+                                      kmeans_dequantize, kmeans_quantize)
+        from repro_torch.data.cells import batch_for_cell
+        from repro_torch.train.loop import batch_to_device
+        x = torch.randn((64, 16), generator=torch.Generator().manual_seed(0))
+        for q in (kmeans_quantize(x, 3), kmeans_block_quantize(x, 3, 4),
+                  kmeans_clustered_quantize(x, 3, 4)):
+            assert kmeans_dequantize(q).shape == x.shape
+        for arch in ("mind", "xdeepfm"):
+            for shape in ("train_batch", "serve_p99", "retrieval_cand"):
+                b = get_cell(arch, shape, reduced=True, device="cpu")
+                batch = batch_to_device(batch_for_cell(b, 0), "cpu")
+                st = b.make_state()
+                out = (b.step_fn(st, batch)[1]["loss"] if b.kind == "train"
+                       else b.step_fn(st.params, batch))
+                assert bool(torch.isfinite(out).all())
+        bad = sorted(k for k in sys.modules
+                     if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not bad, bad
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr
+    assert out.stdout.strip().endswith("OK")
+
+
 def _no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
@@ -167,6 +204,19 @@ def test_cuda_without_card_raises_in_the_retrieval_cells(monkeypatch):
     for arch in ("dlrm-rm2", "bert4rec"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             get_cell(arch, "retrieval_cand", reduced=True)
+
+
+def test_cuda_without_card_raises_in_the_mind_and_xdeepfm_cells(monkeypatch):
+    from repro_torch.configs import get_cell
+    from repro_torch.train.recovery_experiment import run_experiment
+
+    _no_card(monkeypatch)
+    for arch in ("mind", "xdeepfm"):
+        for shape in ("train_batch", "serve_p99", "retrieval_cand"):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                get_cell(arch, shape, reduced=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_experiment()
 
 
 def test_cuda_without_card_raises_in_the_launcher(monkeypatch, tmp_path):
