@@ -8,8 +8,9 @@ keeps the write side's import path.
 The reference's logical-axis ``ShardingRules`` and its family rule sets
 (``lm_rules``, ``recsys_rules``, ``gnn_rules``) map tensors onto a JAX
 device mesh. They are mesh machinery, not checkpoint layout, and are not
-ported here: they come with the mesh launcher (ROADMAP A6,
-``launch/mesh.py``).
+ported here: they come with the mesh launcher (ROADMAP A6.5,
+``launch/mesh.py``), with the sharded DimeNet forward and the LM cache's
+partition specs.
 """
 
 from ..core.range_reader import row_shard_bounds  # noqa: F401

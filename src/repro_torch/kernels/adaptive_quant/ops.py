@@ -39,7 +39,10 @@ from ..build import LaunchCounter, check, library, stream_of
 LAUNCHES = LaunchCounter()                 # quant_pack kernel launches
 ADAPTIVE_QUANT_LAUNCHES = LaunchCounter()  # adaptive_quant kernel launches
 
-MAX_DIM = 1024  # the kernel keeps a row in registers: at most 32 values a lane
+# Row widths the kernels take: up to 1,024 a row lies in one lane group's
+# registers (at most 32 values a lane); past that, the wide route spreads a
+# row over a block of 256 threads, at most 32 values a thread.
+MAX_DIM = 8192
 
 
 @dataclasses.dataclass
@@ -169,8 +172,8 @@ def quant_pack_torch(x: torch.Tensor, *, bits: int, num_bins: int,
 
 def _check_rows(x: torch.Tensor, bits: int, what: str):
     """The arguments both row-wise kernels take: f32 (rows, dim),
-    contiguous, on a CUDA device, dim <= 1024, 1 <= bits <= 8, rows < 2^31.
-    → (rows, dim)."""
+    contiguous, on a CUDA device, dim <= MAX_DIM (8,192; the wide route
+    past 1,024), 1 <= bits <= 8, rows < 2^31. → (rows, dim)."""
     if not x.is_cuda:
         raise ValueError(f"{what} needs a CUDA tensor")
     if x.dtype != torch.float32:
@@ -179,7 +182,8 @@ def _check_rows(x: torch.Tensor, bits: int, what: str):
         raise ValueError("x must be a contiguous 2-D tensor")
     rows, dim = x.shape
     if not 1 <= dim <= MAX_DIM:
-        raise ValueError(f"dim {dim} outside [1, {MAX_DIM}]")
+        raise ValueError(f"dim {dim} outside [1, {MAX_DIM}]: the kernels hold a "
+                         f"row in registers, at most 32 values a thread")
     if not 1 <= bits <= 8:
         raise ValueError(f"bits must be in [1, 8], got {bits}")
     if rows >= 2 ** 31:
@@ -190,7 +194,8 @@ def _check_rows(x: torch.Tensor, bits: int, what: str):
 def quant_pack_cuda(x: torch.Tensor, *, bits: int, num_bins: int,
                     n_steps: int) -> PackedQuant:
     """The hand-written Hopper kernel. ``x`` f32 (rows, dim), contiguous,
-    on a CUDA device, dim <= 1024, 1 <= bits <= 8."""
+    on a CUDA device, dim <= 8,192 (rows wider than 1,024 take the wide
+    route, a block a row), 1 <= bits <= 8."""
     rows, dim = _check_rows(x, bits, "quant_pack_cuda")
     count = rows * dim
     nwords = (count * bits + 31) // 32
@@ -252,7 +257,8 @@ def quant_codes(x: torch.Tensor, *, bits: int, method: str = "adaptive",
 def adaptive_quant_cuda(x: torch.Tensor, *, bits: int, num_bins: int,
                         ratio: float) -> Quantized:
     """The hand-written Hopper kernel of the unpacked op. ``x`` f32
-    (rows, dim), contiguous, on a CUDA device, dim <= 1024, 1 <= bits <= 8."""
+    (rows, dim), contiguous, on a CUDA device, dim <= 8,192 (the wide route
+    past 1,024), 1 <= bits <= 8."""
     rows, dim = _check_rows(x, bits, "adaptive_quant_cuda")
     if num_bins < 1:
         raise ValueError(f"num_bins must be >= 1, got {num_bins}")

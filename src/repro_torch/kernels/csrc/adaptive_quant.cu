@@ -56,6 +56,11 @@
 // numpy against rint(a / s) at exact halves, their ulp neighbours and
 // subnormal scales, with the window below.
 //
+// Rows wider than 1,024 values take the wide route (row_wide.cuh, shared
+// with quant_pack.cu): one block of 256 threads a row, at most 32 values a
+// thread, up to 8,192 values, with the same candidate arithmetic and
+// window rule, the error sums added by thread, warp and block.
+//
 // Exactness otherwise: range / levels and (max - min) / num_bins as a
 // multiply by the constant's f32 reciprocal, as the plain version does;
 // round half to even, as rintf and torch.round; the file built with
@@ -65,6 +70,8 @@
 #include <cfloat>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "row_wide.cuh"
 
 namespace {
 
@@ -281,6 +288,73 @@ adaptive_quant_kernel(const float* __restrict__ x, uint8_t* __restrict__ codes,
   }
 }
 
+// adaptive_quant's candidate error on the wide route: this thread's share
+// of affine_error's sum, its values added in i order, by the divide where a
+// quotient fails the window test.
+template <int V, bool FULL>
+struct WideAffineError {
+  const float (&v)[V];
+  int dim;
+  float levels, inv_levels, window;
+
+  template <typename Code>
+  __device__ __forceinline__ float sum(const Range& c, Code code) const {
+    float acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const float d = v[i] - (code(i) * c.s + c.lo);
+      if (wide::holds<V, FULL>(i, dim)) acc = acc + d * d;
+    }
+    return acc;
+  }
+  __device__ __forceinline__ float partial(float lo, float hi) const {
+    const Range c = make_range(lo, hi, inv_levels, window);
+    bool near = false;
+    const float e = sum(c, [&](int i) { return fast_code(v[i], c, near); });
+    if (!near) return e;
+    return sum(c, [&](int i) { return exact_code(v[i], c.lo, c.hi, c.s, levels); });
+  }
+  __device__ __forceinline__ float total(float, float, float s) const { return s; }
+};
+
+// The wide route: one block of wide::kWideThreads a row, V values a thread
+// (FULL: dim == kWideThreads * V).
+template <int V, bool FULL>
+__global__ void __launch_bounds__(wide::kWideThreads)
+adaptive_quant_wide_kernel(const float* __restrict__ x, uint8_t* __restrict__ codes,
+                           float* __restrict__ scale_out, float* __restrict__ zero_out,
+                           int dim, int bits, int num_bins, int n_steps) {
+  __shared__ float2 slot[2][wide::kWideWarps];
+  int next = 0;
+  const int t = threadIdx.x;
+  const long long row = blockIdx.x;
+  float v[V];
+  wide::load_row<V, FULL>(x + row * dim, dim, v);
+  const float2 mm = wide::block_minmax<V, FULL>(v, dim, slot, next);
+  const float levels = (float)((1 << bits) - 1);
+  const float inv_levels = 1.f / levels;
+  const WideAffineError<V, FULL> err{v, dim, levels, inv_levels,
+                                     (levels + 1.f) * kWindowUnit};
+  const float2 best = wide::greedy_search(mm.x, mm.y, num_bins, n_steps, err, slot, next);
+  const Range c = make_range(best.x, best.y, inv_levels, err.window);
+  float q[V];
+  bool near = false;
+#pragma unroll
+  for (int i = 0; i < V; ++i) q[i] = fast_code(v[i], c, near);
+  if (near) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) q[i] = exact_code(v[i], c.lo, c.hi, c.s, levels);
+  }
+  uint8_t* cr = codes + row * dim + t;
+#pragma unroll
+  for (int i = 0; i < V; ++i)
+    if (wide::holds<V, FULL>(i, dim)) cr[wide::kWideThreads * i] = (uint8_t)q[i];
+  if (t == 0) {
+    scale_out[row] = c.s;
+    zero_out[row] = best.x;
+  }
+}
+
 struct Args {
   const float* x;
   uint8_t* codes;
@@ -307,10 +381,23 @@ cudaError_t launch_k(const Args& a) {
   return a.dim == 32 * K ? launch<L, K, true>(a) : launch<L, K, false>(a);
 }
 
+// The wide route at V values a thread.
+template <int V>
+cudaError_t launch_wide(const Args& a) {
+  if (a.dim == wide::kWideThreads * V)
+    adaptive_quant_wide_kernel<V, true><<<a.rows, wide::kWideThreads, 0, a.stream>>>(
+        a.x, a.codes, a.scale, a.zero, a.dim, a.bits, a.num_bins, a.n_steps);
+  else
+    adaptive_quant_wide_kernel<V, false><<<a.rows, wide::kWideThreads, 0, a.stream>>>(
+        a.x, a.codes, a.scale, a.zero, a.dim, a.bits, a.num_bins, a.n_steps);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x: rows*dim f32, row-major, on the device; codes: rows*dim uint8; scale,
-// zero: rows f32 each. 1 <= dim <= 1024, 1 <= bits <= 8, num_bins >= 1.
+// zero: rows f32 each. 1 <= dim <= 8192 (the wide route past 1024),
+// 1 <= bits <= 8, num_bins >= 1.
 // Returns cudaGetLastError() after the launch.
 extern "C" int adaptive_quant_launch(const void* x, void* codes, void* scale,
                                      void* zero, int rows, int dim, int bits,
@@ -325,6 +412,11 @@ extern "C" int adaptive_quant_launch(const void* x, void* codes, void* scale,
   else if (dim <= 256) err = launch_k<8>(a);
   else if (dim <= 512) err = launch_k<16>(a);
   else if (dim <= 1024) err = launch_k<32>(a);
+  else if (dim <= 2048) err = launch_wide<8>(a);
+  else if (dim <= 3072) err = launch_wide<12>(a);
+  else if (dim <= 4096) err = launch_wide<16>(a);
+  else if (dim <= 6144) err = launch_wide<24>(a);
+  else if (dim <= wide::kMaxDim) err = launch_wide<32>(a);
   else err = cudaErrorInvalidValue;
   return (int)err;
 }

@@ -35,6 +35,15 @@
 // builds whole output words. Codes past the last row are zero, so the tail
 // bits of the final word are zero.
 //
+// Rows wider than 1,024 values take the wide route (row_wide.cuh): one
+// block of 256 threads a row, at most 32 values a thread, so up to 8,192
+// values; the same search and code arithmetic, the error sums added by
+// thread, warp and block. Its codes are staged in shared memory and each
+// thread builds whole words of the row's bit range; where dim*bits is not a
+// multiple of 32, a row's first and last words are shared with its
+// neighbours, so the launcher zeroes the stream first and those two words
+// are ORed in atomically (every other word is stored).
+//
 // Exactness: round half to even as rint does, by adding and subtracting
 // 1.5 * 2^23 (exact for the clamped values, in [0, 255]); a true IEEE
 // divide for the final codes and a correctly rounded reciprocal
@@ -46,6 +55,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "row_wide.cuh"
 
 namespace {
 
@@ -322,6 +333,88 @@ quant_pack_kernel(const float* __restrict__ x, uint32_t* __restrict__ words,
   }
 }
 
+// quant_pack's candidate error on the wide route: range_error's terms for
+// the values this thread holds, added in i order; total() scales the
+// block's sum by scale^2, as range_error does.
+template <int V, bool FULL>
+struct WideRangeError {
+  const float (&v)[V];
+  int dim;
+  float levels, inv_levels;
+
+  __device__ __forceinline__ float scale(float lo, float hi) const {
+    const float rng = hi - lo;
+    return rng > 0.f ? rng * inv_levels : 1.f;
+  }
+  __device__ __forceinline__ float partial(float lo, float hi) const {
+    const float inv = __frcp_rn(scale(lo, hi));
+    float acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const float r = (v[i] - lo) * inv;
+      const float d = r - round_even(fminf(fmaxf(r, 0.f), levels));
+      if (wide::holds<V, FULL>(i, dim)) acc = acc + d * d;
+    }
+    return acc;
+  }
+  __device__ __forceinline__ float total(float lo, float hi, float sum) const {
+    const float s = scale(lo, hi);
+    return (s * s) * sum;
+  }
+};
+
+// The wide route: one block of wide::kWideThreads a row, V values a thread
+// (FULL: dim == kWideThreads * V).
+template <int V, bool FULL>
+__global__ void __launch_bounds__(wide::kWideThreads)
+quant_pack_wide_kernel(const float* __restrict__ x, uint32_t* __restrict__ words,
+                       float* __restrict__ scale_out, float* __restrict__ zero_out,
+                       int dim, int bits, int num_bins, int n_steps) {
+  __shared__ float2 slot[2][wide::kWideWarps];
+  __shared__ uint8_t codes[wide::kMaxDim];
+  int next = 0;
+  const int t = threadIdx.x;
+  const long long row = blockIdx.x;
+  float v[V];
+  wide::load_row<V, FULL>(x + row * dim, dim, v);
+  const float2 mm = wide::block_minmax<V, FULL>(v, dim, slot, next);
+  const float levels = (float)((1 << bits) - 1);
+  const float inv_levels = 1.f / levels;
+  const WideRangeError<V, FULL> err{v, dim, levels, inv_levels};
+  const float2 best = wide::greedy_search(mm.x, mm.y, num_bins, n_steps, err, slot, next);
+  const float sc = err.scale(best.x, best.y);
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    if (wide::holds<V, FULL>(i, dim)) {
+      const float xc = fminf(fmaxf(v[i], best.x), best.y);
+      const float c = round_even(__fdiv_rn(xc - best.x, sc));
+      codes[t + wide::kWideThreads * i] = (uint8_t)fminf(fmaxf(c, 0.f), levels);
+    }
+  }
+  if (t == 0) {
+    scale_out[row] = sc;
+    zero_out[row] = best.x;
+  }
+  __syncthreads();
+
+  // The row's codes fill stream bits [b0, b1); word w holds bits [32w,
+  // 32w + 32), the codes overlapping them.
+  const long long b0 = row * dim * bits, b1 = b0 + (long long)dim * bits;
+  for (long long w = (b0 >> 5) + t; w <= ((b1 - 1) >> 5); w += wide::kWideThreads) {
+    const long long wb = w << 5;
+    const int p_lo = wb > b0 ? (int)((wb - b0) / bits) : 0;
+    const int p_hi = min(dim - 1, (int)((wb + 31 - b0) / bits));
+    uint32_t word = 0;
+    for (int p = p_lo; p <= p_hi; ++p) {
+      const int sh = (int)(b0 + (long long)p * bits - wb);
+      const uint32_t c = codes[p];
+      word |= sh >= 0 ? (c << sh) : (c >> -sh);
+    }
+    if (wb >= b0 && wb + 32 <= b1) words[w] = word;
+    else atomicOr(words + w, word);
+  }
+}
+
 struct Args {
   const float* x;
   uint32_t* words;
@@ -353,12 +446,29 @@ cudaError_t launch_k(const Args& a) {
   return a.dim == 32 * K ? launch<L, K, true>(a) : launch<L, K, false>(a);
 }
 
+// The wide route at V values a thread. Rows that do not start on a word
+// boundary share words with their neighbours: the stream is zeroed first.
+template <int V>
+cudaError_t launch_wide(const Args& a) {
+  if ((long long)a.dim * a.bits % 32) {
+    const cudaError_t err = cudaMemsetAsync(a.words, 0, a.nwords * 4, a.stream);
+    if (err != cudaSuccess) return err;
+  }
+  if (a.dim == wide::kWideThreads * V)
+    quant_pack_wide_kernel<V, true><<<a.rows, wide::kWideThreads, 0, a.stream>>>(
+        a.x, a.words, a.scale, a.zero, a.dim, a.bits, a.num_bins, a.n_steps);
+  else
+    quant_pack_wide_kernel<V, false><<<a.rows, wide::kWideThreads, 0, a.stream>>>(
+        a.x, a.words, a.scale, a.zero, a.dim, a.bits, a.num_bins, a.n_steps);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x: rows*dim f32, row-major, on the device; words: nwords =
 // ceil(rows*dim*bits/32) uint32, 16-byte aligned; scale, zero: rows f32
-// each. dim <= 1024, 1 <= bits <= 8. Returns cudaGetLastError() after the
-// launch.
+// each. dim <= 8192 (the wide route past 1024), 1 <= bits <= 8. Returns
+// cudaGetLastError() after the launch.
 extern "C" int quant_pack_launch(const void* x, void* words, void* scale,
                                  void* zero, int rows, int dim, int bits,
                                  int num_bins, int n_steps, long long nwords,
@@ -374,6 +484,11 @@ extern "C" int quant_pack_launch(const void* x, void* words, void* scale,
   else if (dim <= 256) err = launch_k<8>(a);
   else if (dim <= 512) err = launch_k<16>(a);
   else if (dim <= 1024) err = launch_k<32>(a);
+  else if (dim <= 2048) err = launch_wide<8>(a);
+  else if (dim <= 3072) err = launch_wide<12>(a);
+  else if (dim <= 4096) err = launch_wide<16>(a);
+  else if (dim <= 6144) err = launch_wide<24>(a);
+  else if (dim <= wide::kMaxDim) err = launch_wide<32>(a);
   else err = cudaErrorInvalidValue;
   return (int)err;
 }

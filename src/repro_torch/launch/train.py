@@ -1,10 +1,14 @@
 """Training launcher CLI.
 
   PYTHONPATH=src python -m repro_torch.launch.train \
-      --arch xdeepfm|dlrm-rm2|mind|bert4rec \
-      --shape train_batch --steps 100 --interval 20 --bits 4 \
+      --arch xdeepfm|dlrm-rm2|mind|bert4rec|dimenet|qwen2-0.5b|nemotron-4-15b \
+      --shape SHAPE --steps 100 --interval 20 --bits 4 \
       --policy intermittent --ckpt-dir CKPT_DIR [--reduced | --full-config] \
       [--vocab-cap ROWS] [--fail-at 60] [--device cuda|cpu]
+
+SHAPE is a train shape of the arch's family: ``train_batch`` (recsys),
+``molecule``, ``full_graph_sm``, ``minibatch_lg`` or ``ogb_products``
+(dimenet), ``train_4k`` (the LMs).
 
 Runs on the card (``--device cuda``, the default) and raises when there is
 none; ``--device cpu`` runs the same path on the CPU.
@@ -19,7 +23,8 @@ import sys
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
-                    help="xdeepfm, dlrm-rm2, mind or bert4rec")
+                    help="xdeepfm, dlrm-rm2, mind, bert4rec, dimenet, qwen2-0.5b "
+                         "or nemotron-4-15b")
     ap.add_argument("--shape", required=True)
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--interval", type=int, default=20)

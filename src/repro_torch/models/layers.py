@@ -1,7 +1,10 @@
 """Dense-layer building blocks, in PyTorch: the parts of
 ``src/repro/models/layers.py`` that the ported models use — ``dense_init``,
-``layernorm``, the tanh-approximated GELU, and ``chunked_attention``, the
-online-softmax attention the transformer models train through."""
+``layernorm`` and ``rmsnorm``, the activations (``act_fn``, with the
+tanh-approximated GELU), RoPE, ``chunked_attention``, the online-softmax
+attention the transformer models train through, and ``decode_attention``
+against a KV cache. The reference's MoE and MLA blocks come with the
+MoE/MLA half of ROADMAP A6.4."""
 
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ def dense_init(gen: torch.Generator, shape, scale: Optional[float] = None,
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale if scale is not None else 1.0 / np.sqrt(max(fan_in, 1))
     return torch.randn(tuple(shape), generator=gen, dtype=dtype,
-                       device=gen.device) * scale
+                       device=gen.device).mul_(scale)
 
 
 def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -39,9 +42,43 @@ def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return out.to(dtype)
 
 
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis in f32, returned in ``x``'s dtype."""
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    return ((x * torch.rsqrt(var + eps)) * gamma.to(torch.float32)).to(dtype)
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu``'s default: the tanh approximation."""
     return F.gelu(x, approximate="tanh")
+
+
+def _relu2(x: torch.Tensor) -> torch.Tensor:
+    """Squared ReLU (nemotron)."""
+    return torch.square(torch.relu(x))
+
+
+def act_fn(name: str):
+    return {"relu": torch.relu, "gelu": gelu, "silu": F.silu, "relu2": _relu2}[name]
+
+
+def rope_freqs(head_dim: int, theta: float = 1e4, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S). The rotation
+    in f32 on the halves of D, the result in ``x``'s dtype."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)
+    ang = positions[..., None].to(torch.float32) * freqs     # (..., S, D/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
 
 
 def chunked_attention(q, k, v, *, causal: bool, q_chunk: int = 512,
@@ -106,3 +143,26 @@ def chunked_attention(q, k, v, *, causal: bool, q_chunk: int = 512,
             outs.append(q_body(qc, qi))
     out = outs[0] if nq == 1 else torch.cat(outs, dim=1)
     return out[:, :orig_Sq]
+
+
+def decode_attention(q, k_cache, v_cache, cache_len) -> torch.Tensor:
+    """Single(-few)-token decode attention against a KV cache, the
+    reference's arithmetic: the cache cast to f32, scores scaled by
+    ``1/sqrt(D)``, positions at or past ``cache_len`` at the f32 minimum, a
+    softmax over the whole cache.
+
+    q: (B, Tq, Hq, D); caches: (B, Smax, Hkv, D); cache_len: an int, () or
+    (B,) — the number of valid cache positions. Returns (B, Tq, Hq, D) in
+    q's dtype."""
+    B, Tq, Hq, D = q.shape
+    _, Smax, Hkv, _ = k_cache.shape
+    G = Hq // Hkv
+    scale = 1.0 / np.sqrt(D)
+    qg = q.reshape(B, Tq, Hkv, G, D).to(torch.float32)
+    s = torch.einsum("bthgd,bshd->bhgts", qg, k_cache.to(torch.float32)) * scale
+    pos = torch.arange(Smax, device=q.device)
+    valid = pos[None, :] < torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
+    s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgts,bshd->bthgd", p, v_cache.to(torch.float32))
+    return out.reshape(B, Tq, Hq, D).to(q.dtype)

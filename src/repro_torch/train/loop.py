@@ -38,9 +38,17 @@ class TrainerConfig:
     use_reader_tier: bool = True
 
 
-def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in batch.items()}
+def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
+    """Host arrays to tensors on ``device``; a tensor (an LM decode batch's
+    cache, made on the device) moves only if it lies elsewhere, and a dict
+    of them is taken key by key."""
+    def move(v):
+        if isinstance(v, dict):
+            return {k: move(x) for k, x in v.items()}
+        if isinstance(v, torch.Tensor):
+            return v.to(device)
+        return torch.from_numpy(np.ascontiguousarray(v)).to(device)
+    return {k: move(v) for k, v in batch.items()}
 
 
 class Trainer:

@@ -25,9 +25,7 @@ PACKAGES = ["core", "train", "optim", "models.embedding", "serve", "dist", "data
 WAITING = {
     "dist": {"collectives": "A6.4"},
     "configs": {
-        "dimenet": "A6.3",
-        "olmoe_1b_7b": "A6.4", "dbrx_132b": "A6.4", "nemotron_4_15b": "A6.4",
-        "qwen2_0_5b": "A6.4", "minicpm3_4b": "A6.4",
+        "olmoe_1b_7b": "A6.4", "dbrx_132b": "A6.4", "minicpm3_4b": "A6.4",
         "FAMILY_SHAPES": "A6.5", "FAMILY_SHAPES_REDUCED": "A6.5", "all_cells": "A6.5",
         "arch_family": "A6.5", "arch_shapes": "A6.5",
     },

@@ -176,8 +176,8 @@ def test_wrappers_check_their_arguments(cuda):
     with pytest.raises(ValueError):
         quant_pack_cuda(torch.zeros((8, 4), device=cuda).t(), bits=4,
                         num_bins=45, n_steps=9)
-    with pytest.raises(ValueError):
-        quant_pack_cuda(torch.zeros((4, 2048), device=cuda), bits=4,
+    with pytest.raises(ValueError):  # past the wide route's 8,192
+        quant_pack_cuda(torch.zeros((4, 8193), device=cuda), bits=4,
                         num_bins=45, n_steps=9)
     with pytest.raises(ValueError):
         hash_words_cuda(torch.zeros(8, dtype=torch.int32, device=cuda), 9)
@@ -910,3 +910,61 @@ def test_kmeans_on_the_card_matches_the_cpu(cuda, method, bits):
     if differ.any():
         d = np.sort(np.abs(x.cpu().numpy()[..., None] - books[:, None, :]), -1)
         assert np.all((d[..., 1] - d[..., 0])[differ] <= 1e-6)
+
+
+# The wide route (rows past 1,024 values, a block a row): widths that are
+# not a multiple of 32 (1,100, 1,025: rows share their first and last words),
+# the LMs' tok_emb widths (2,048, 2,560, 6,144) and the route's limit
+WIDE_DIMS = [1025, 1100, 2048, 2560, 6144, 8192]
+
+
+@pytest.mark.parametrize("dim", WIDE_DIMS)
+@pytest.mark.parametrize("method,bits", [("uniform_asym", b) for b in (1, 2, 3, 4, 8)]
+                         + [("adaptive", b) for b in (2, 4, 8)])
+def test_quant_pack_wide_rows_match_plain(cuda, dim, method, bits):
+    from repro_torch.kernels.adaptive_quant import ops
+
+    rows = 67
+    x = _rows(rows, dim, cuda, seed=dim + bits)
+    nb, ns = ops._resolve_steps(method, bits, None, None)
+    before = ops.LAUNCHES.count
+    k = ops.quant_pack(x, bits=bits, method=method)
+    assert ops.LAUNCHES.count == before + 1
+    p = ops.quant_pack_torch(x, bits=bits, num_bins=nb, n_steps=ns)
+    assert k.words.shape == p.words.shape and k.count == p.count
+    if method == "uniform_asym":
+        np.testing.assert_array_equal(k.words.cpu().numpy(), p.words.cpu().numpy())
+    else:
+        np.testing.assert_allclose(k.scale.cpu().numpy(), p.scale.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-7)
+        np.testing.assert_allclose(k.zero.cpu().numpy(), p.zero.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-7)
+        assert (_codes(k) != _codes(p)).mean() <= 2e-3
+
+
+@pytest.mark.parametrize("dim", WIDE_DIMS)
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_adaptive_quant_wide_rows_match_plain(cuda, dim, bits):
+    from repro_torch.core.quantize import adaptive_quantize
+    from repro_torch.kernels.adaptive_quant import ops
+
+    x = _rows(67, dim, cuda, seed=dim * bits)
+    before = ops.ADAPTIVE_QUANT_LAUNCHES.count
+    got = ops.adaptive_quant(x, bits=bits, num_bins=25, ratio=0.5)
+    assert ops.ADAPTIVE_QUANT_LAUNCHES.count == before + 1
+    want = adaptive_quantize(x, bits, 25, 0.5)
+    np.testing.assert_allclose(got.scale.cpu().numpy(), want.scale.cpu().numpy(),
+                               rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(got.zero.cpu().numpy(), want.zero.cpu().numpy(),
+                               rtol=1e-5, atol=1e-7)
+    assert (got.codes != want.codes).float().mean().item() <= 2e-3
+
+
+def test_wide_route_refuses_past_its_limit(cuda):
+    from repro_torch.kernels.adaptive_quant import ops
+
+    x = torch.zeros((2, ops.MAX_DIM + 1), device=cuda)
+    with pytest.raises(ValueError, match="8192"):
+        ops.quant_pack(x, bits=4)
+    with pytest.raises(ValueError, match="8192"):
+        ops.adaptive_quant(x, bits=4)

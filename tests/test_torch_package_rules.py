@@ -6,7 +6,8 @@
 * The entry points that run as their own processes
   (``python -m repro_torch.dist.host_proc``, ``python -m
   repro_torch.launch.ckpt``) run in a fresh interpreter without either,
-  and so do the k-means quantizers and the MIND and xDeepFM cells.
+  and so do the k-means quantizers, the MIND and xDeepFM cells, and the
+  DimeNet and dense LM cells.
 * ``device="cuda"`` without a card raises; nothing falls back to the CPU.
 """
 
@@ -166,6 +167,49 @@ def test_kmeans_and_the_mind_and_xdeepfm_cells_run_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout[-2000:] + out.stderr
     assert out.stdout.strip().endswith("OK")
+
+
+def test_dimenet_and_lm_cells_run_without_jax():
+    """A step of each reduced DimeNet cell and of the qwen2-0.5b and
+    nemotron-4-15b train, prefill and decode cells, in one fresh
+    interpreter that never imports JAX or the reference."""
+    code = textwrap.dedent("""
+        import sys
+        import torch
+        from repro_torch.configs import get_cell
+        from repro_torch.data.cells import batch_for_cell
+        from repro_torch.train.loop import batch_to_device
+        cells = [("dimenet", s) for s in ("molecule", "full_graph_sm", "minibatch_lg",
+                                         "ogb_products")]
+        cells += [(a, s) for a in ("qwen2-0.5b", "nemotron-4-15b")
+                  for s in ("train_4k", "prefill_32k", "decode_32k")]
+        for arch, shape in cells:
+            b = get_cell(arch, shape, reduced=True, device="cpu")
+            batch = batch_to_device(batch_for_cell(b, 0), "cpu")
+            st = b.make_state()
+            out = (b.step_fn(st, batch)[1]["loss"] if b.kind == "train"
+                   else b.step_fn(st.params, batch)[0])
+            assert bool(torch.isfinite(out).all()), (arch, shape)
+        bad = sorted(k for k in sys.modules
+                     if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not bad, bad
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr
+    assert out.stdout.strip().endswith("OK")
+
+
+def test_cuda_without_card_raises_in_the_new_cells(monkeypatch):
+    from repro_torch.configs import get_cell
+
+    _no_card(monkeypatch)
+    for arch, shape in (("dimenet", "molecule"), ("qwen2-0.5b", "train_4k"),
+                        ("nemotron-4-15b", "decode_32k")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            get_cell(arch, shape, reduced=True)
 
 
 def _no_card(monkeypatch):
