@@ -335,6 +335,7 @@ def check_sass(lib_path: str) -> dict:
             if "dot_interaction" in f and "dot_interaction_mma" not in f}
     aq = {f: c for f, c in counts.items() if "adaptive_quant_kernel" in f}
     aq_wide = {f: c for f, c in counts.items() if "adaptive_quant_wide_kernel" in f}
+    aq_long = {f: c for f, c in counts.items() if "adaptive_quant_long_kernel" in f}
     check(len(mma) == 4 and all(c["HMMA"] > 0 for c in mma.values()),
           f"dot_interaction's bf16 route issues HMMA: {mma}")
     check(len(simt) == 1 and all(c["HMMA"] == 0 for c in simt.values()),
@@ -345,6 +346,9 @@ def check_sass(lib_path: str) -> dict:
     check(len(aq_wide) == 10 and all(c["FCHK"] <= 1 and c["CALL"] > 0
                                      for c in aq_wide.values()),
           f"adaptive_quant's wide kernels divide only out of line: {aq_wide}")
+    check(len(aq_long) == 1 and all(c["FCHK"] <= 1 and c["CALL"] > 0
+                                    for c in aq_long.values()),
+          f"adaptive_quant's long kernel divides only out of line: {aq_long}")
     # chunk_hash: one global atomic, a block's add to the sum (the earlier
     # kernel issued one a warp); the f32 attention keeps
     # full f32 products, on no tensor core
@@ -356,7 +360,7 @@ def check_sass(lib_path: str) -> dict:
     check(len(f32) == 4 and all(c["HMMA"] == 0 and c["HGMMA"] == 0 for c in f32.values()),
           f"the f32 attention issues no tensor-core instruction: {f32}")
     return dict(dot_interaction_mma=mma, dot_interaction_f32=simt, adaptive_quant=aq,
-                adaptive_quant_wide=aq_wide,
+                adaptive_quant_wide=aq_wide, adaptive_quant_long=aq_long,
                 chunk_hash=ch, flash_attention_f32=f32)
 
 
@@ -536,25 +540,35 @@ def _aq_instrs(n_el, n_cand):
 
 
 WIDE_DIMS = (1100, 2048, 2560, 6144)  # past one lane group's 1,024: a block a row
+LONG_DIMS = (10752, 20001)  # past the wide route's 8,192: the row streamed
+LONG_DEVICE_DIM = 60001     # past what shared memory holds: read from device memory
+
+
+def _wide_kernel(dim):
+    """The kernel name a row of ``dim`` values launches past 1,024."""
+    return "wide" if dim <= 8192 else "long"
 
 
 def check_and_time_wide_quant(gen, dev):
-    """The quantizers' wide route (rows wider than 1,024 values, one block
-    of 256 threads a row): ``quant_pack`` against its plain version at
-    widths 1,100 (not a multiple of 32: rows share words), 2,048, 2,560 and
-    6,144 (the LMs' ``tok_emb`` widths) and 8,192 (the limit), bits 2, 4
-    and 8, adaptive and uniform (uniform words byte-identical, adaptive
-    within the bars); ``adaptive_quant`` likewise (num_bins 25, ratio 0.5).
-    Then each timed at 65,536 rows of each width (6,144: 1.61 GB f32), 4-bit
-    (``quant_pack`` adaptive as the save path runs it), beside its bound and,
-    at 6,144, its plain version."""
+    """The quantizers' wide and long routes (rows wider than 1,024 values,
+    one block of 256 threads a row; past 8,192 the row streamed from shared
+    memory, or past 51,200 from device memory): ``quant_pack`` against its
+    plain version at widths 1,100 (not a multiple of 32: rows share words),
+    2,048, 2,560 and 6,144 (the LMs' ``tok_emb`` widths), 8,192 (the wide
+    route's limit), 10,752 (dbrx's expert rows), 20,001 (odd) and 60,001
+    (in device memory), bits 2, 4 and 8, adaptive and uniform (uniform words
+    byte-identical, adaptive within the bars); ``adaptive_quant`` likewise
+    (num_bins 25, ratio 0.5). Then each timed at 65,536 rows of each width
+    but 8,192 and 60,001 (6,144: 1.61 GB f32; 20,001: 5.24 GB), 4-bit
+    (``quant_pack`` adaptive as the save path runs it), beside its bound
+    and, at 6,144 and 10,752, its plain version."""
     import torch
 
     from repro_torch.core.quantize import adaptive_quantize, dequantize
     from repro_torch.kernels.adaptive_quant import ops as aq
 
     qp_checks, aq_checks = [], []
-    for dim in WIDE_DIMS + (8192,):
+    for dim in WIDE_DIMS + (8192,) + LONG_DIMS + (LONG_DEVICE_DIM,):
         x = _rows(gen, 700, dim, dev)
         for bits in (2, 4, 8):
             for method in ("adaptive", "uniform_asym"):
@@ -570,39 +584,44 @@ def check_and_time_wide_quant(gen, dev):
             check(torch.allclose(k.scale, p.scale, rtol=1e-5, atol=1e-7)
                   and torch.allclose(k.zero, p.zero, rtol=1e-5, atol=1e-7)
                   and out["code_diff_frac"] <= 2e-3, f"adaptive_quant wide {out}")
-    log("wide quant_pack checks: " + json.dumps(qp_checks))
-    log("wide adaptive_quant checks: " + json.dumps(aq_checks))
+    log("wide and long quant_pack checks: " + json.dumps(qp_checks))
+    log("wide and long adaptive_quant checks: " + json.dumps(aq_checks))
 
     rows = 65536
     nb, ns = aq._resolve_steps("adaptive", 4, None, None)
     n_aq = int(0.5 * 25)
     qp_t, aq_t = {}, {}
-    for dim in WIDE_DIMS:
+    for dim in WIDE_DIMS + LONG_DIMS:
         x = _rows(gen, rows, dim, dev)
         n_el = x.numel()
         words = (n_el * 4 + 31) // 32
         qb, qby = bound(n_el * 4 + words * 4 + 2 * rows * 4, _qp_instrs(n_el, 2 * ns + 1))
         ab, aby = bound(n_el * 5 + 2 * rows * 4, _aq_instrs(n_el, 2 * n_aq + 1))
-        qp_t[dim] = dict(ms=kernel_ms(lambda: aq.quant_pack_cuda(
-            x, bits=4, num_bins=nb, n_steps=ns), "quant_pack_wide_kernel", reps=10),
-            bound_ms=qb, bound_by=qby)
-        aq_t[dim] = dict(ms=kernel_ms(lambda: aq.adaptive_quant_cuda(
-            x, bits=4, num_bins=25, ratio=0.5), "adaptive_quant_wide_kernel", reps=10),
-            bound_ms=ab, bound_by=aby)
-        if dim == 6144:
+        route = _wide_kernel(dim)
+        # a trace of 10 calls that holds 8 will do: the profiler dropped one
+        # event of every trace of one of these kernels in a run
+        qp_t[dim] = dict(route=route, ms=kernel_ms(lambda: aq.quant_pack_cuda(
+            x, bits=4, num_bins=nb, n_steps=ns), f"quant_pack_{route}_kernel", reps=10,
+            min_events=8), bound_ms=qb, bound_by=qby)
+        aq_t[dim] = dict(route=route, ms=kernel_ms(lambda: aq.adaptive_quant_cuda(
+            x, bits=4, num_bins=25, ratio=0.5), f"adaptive_quant_{route}_kernel", reps=10,
+            min_events=8), bound_ms=ab, bound_by=aby)
+        check(qp_t[dim]["ms"] and aq_t[dim]["ms"], f"traces of the {route} route at {dim}")
+        if dim in (6144, 10752):  # one call each: the plain versions take seconds
             qp_t[dim]["plain_ms"] = time_ms(lambda: aq.quant_pack_torch(
-                x, bits=4, num_bins=nb, n_steps=ns), reps=3, warmup=1)
+                x, bits=4, num_bins=nb, n_steps=ns), reps=1, warmup=0)
             aq_t[dim]["plain_ms"] = time_ms(lambda: adaptive_quantize(x, 4, 25, 0.5),
-                                            reps=3, warmup=1)
+                                            reps=1, warmup=0)
         for t in (qp_t[dim], aq_t[dim]):
             t["frac_of_bound"] = t["bound_ms"] / t["ms"]
         del x
         torch.cuda.empty_cache()
-    log(f"wide route, {rows} rows, 4-bit: quant_pack (adaptive, num_bins {nb}, "
-        f"{ns} steps) {json.dumps(qp_t)}; adaptive_quant (num_bins 25, ratio 0.5) "
-        f"{json.dumps(aq_t)}")
+    log(f"wide and long routes, {rows} rows, 4-bit: quant_pack (adaptive, num_bins "
+        f"{nb}, {ns} steps) {json.dumps(qp_t)}; adaptive_quant (num_bins 25, ratio "
+        f"0.5) {json.dumps(aq_t)}")
     summary = lambda checks: dict(
-        checks=len(checks), widths=list(WIDE_DIMS) + [8192],
+        checks=len(checks),
+        widths=list(WIDE_DIMS) + [8192] + list(LONG_DIMS) + [LONG_DEVICE_DIM],
         max_code_diff_frac=max(c["code_diff_frac"] for c in checks),
         max_abs_err=max(c["max_abs_err"] for c in checks))
     return (dict(summary(qp_checks), uniform_words_identical=all(
@@ -2219,12 +2238,15 @@ def _traced_split(fn, groups=None):
 
 
 def _train_phase(arch, bundle, root, device, steps, fail_at=None, groups=None,
-                 trace=True):
+                 trace=True, ckpt_kw=None):
     """Train ``bundle`` from a fresh start for ``steps`` steps with 4-bit
     adaptive saves every 2 steps into ``root`` (the intermittent policy), and
     inject a failure at ``fail_at`` if given; with ``trace``, one more step
     (on a batch made beforehand) under the profiler, split by ``groups``.
-    Returns (trainer, closed; its live tables as host arrays; figures)."""
+    ``ckpt_kw`` adds to the checkpoint config. Returns (trainer, closed;
+    its live tables as host arrays, and of a tracked block under ``dense``
+    its 2-D view and optimizer state; figures, with such blocks' touched
+    masks after each step: the units touched since the last snapshot)."""
     import torch
 
     from repro_torch.core import CheckpointConfig, LocalFSStore, PAPER_DEFAULTS
@@ -2234,20 +2256,24 @@ def _train_phase(arch, bundle, root, device, steps, fail_at=None, groups=None,
     from repro_torch.train.loop import (SimulatedFailure, Trainer, TrainerConfig,
                                         batch_to_device)
 
-    step_s = []
+    step_s, touched_by_step = [], []
     step_fn = bundle.step_fn
+    blocks = {n: sp for n, sp in bundle.tracked.items() if sp.path[0] == "dense"}
 
     def timed_step(state, batch):
         torch.cuda.synchronize()
         t1 = time.monotonic()
-        out = step_fn(state, batch)
+        new_state, metrics = step_fn(state, batch)
         torch.cuda.synchronize()
         step_s.append(time.monotonic() - t1)
-        return out
+        # the running OR since the last snapshot, which resets it
+        touched_by_step.append({n: new_state.touched[n].cpu() for n in blocks})
+        return new_state, metrics
 
     bundle.step_fn = timed_step
     ckpt = CheckpointConfig(interval_batches=2, policy="intermittent",
-                            quant=PAPER_DEFAULTS[4], keep_latest=10, device=device)
+                            quant=PAPER_DEFAULTS[4], keep_latest=10, device=device,
+                            **(ckpt_kw or {}))
     for c in (aq.LAUNCHES, ch.LAUNCHES):
         c.reset()
     torch.cuda.reset_peak_memory_stats()
@@ -2267,6 +2293,7 @@ def _train_phase(arch, bundle, root, device, steps, fail_at=None, groups=None,
         split = _traced_split(lambda: step_fn(tr.state, batch), groups)
         del batch
     live = {k: v.cpu().numpy() for k, v in tr.state.params["tables"].items()}
+    live.update(_tracked_blocks(tr.state, blocks))
     if fail_at is not None:
         try:
             tr.run(2, fail_at_step=fail_at)
@@ -2281,8 +2308,22 @@ def _train_phase(arch, bundle, root, device, steps, fail_at=None, groups=None,
         traced_step=split,
         run_s=run_s, last_save_wait_s=wait_s, save_walls=_save_walls(saves),
         stall_s=[round(t, 4) for t in tr.stall_times],
-        losses=[round(h["loss"], 5) for h in tr.history],
+        losses=[round(h["loss"], 5) for h in tr.history], touched_by_step=touched_by_step,
         launches={"quant_pack": aq.LAUNCHES.count, "chunk_hash": ch.LAUNCHES.count})
+
+
+def _tracked_blocks(state, blocks):
+    """Host copies of tracked blocks under ``dense`` (the MoE experts): each
+    one's 2-D checkpoint view, and its optimizer state's as
+    ``<name>.opt_acc2d``."""
+    from repro_torch.train.state import tree_get
+
+    out = {}
+    for name, sp in blocks.items():
+        out[name] = tree_get(state.params, sp.path).reshape(sp.rows, sp.dim).cpu().numpy()
+        acc = tree_get(state.opt_state, sp.path)
+        out[f"{name}.opt_acc2d"] = acc.reshape(sp.rows, -1).cpu().numpy()
+    return out
 
 
 def _saved_steps(store, steps):
@@ -2332,8 +2373,10 @@ def _resume_and_save(bundle, root, ckpt, at, against_manager=True):
                               torch.from_numpy(rs.tables[name])),
                   f"{name}: Trainer restore == manager.restore()")
     else:
+        blocks = {n: sp for n, sp in bundle.tracked.items() if sp.path[0] == "dense"}
         rs = types.SimpleNamespace(step=at, tables={
             k: v.cpu().numpy() for k, v in tr2.state.params["tables"].items()})
+        rs.tables.update(_tracked_blocks(tr2.state, blocks))
     tr2.run(2)
     tr2.manager.wait()
     tr2.close()
@@ -3254,15 +3297,17 @@ def _greedy_decode_vs_forward(params, cfg, prompt, n_steps, max_len):
 
 
 def phase_qwen2(kernels, root, device="cuda", reduced=False, train_batch=8,
-                prefill_batch=4, decode_steps=8):
+                prefill_batch=4, decode_steps=8, prefill_layers=2):
     """qwen2-0.5b at full width (24 layers, d 896, 14 heads on 2 kv heads
     of 64, d_ff 4,864, vocab 151,936): ``train_4k`` at global batch
     ``train_batch`` of 256 (sequence 4,096) through 4-bit adaptive saves
     every 2 steps (``tok_emb``, 151,936 x 896, through ``quant_pack``'s
     narrow route), a failure, a restore and a save at 6; ``prefill_32k`` at
-    batch ``prefill_batch`` of 32 (sequence 32,768) from the restored
-    params, every layer's attention one ``flash_attention`` launch, one
-    layer's held against the plain version and timed beside SDPA;
+    batch ``prefill_batch`` of 32 (sequence 32,768) through the first
+    ``prefill_layers`` of the restored params' 24 layers (each layer 1.47 s
+    of the flash kernel at this shape on an H100), every layer's attention
+    one ``flash_attention`` launch, one layer's held against the plain
+    version and timed beside SDPA;
     ``decode_32k`` at its full shape (batch 128, a 32,768-position cache,
     ``cache_len`` 16,384); decode against a full forward (batch 2, prompt
     64, 8 greedy steps)."""
@@ -3278,6 +3323,7 @@ def phase_qwen2(kernels, root, device="cuda", reduced=False, train_batch=8,
     from repro_torch.models.embedding import take
     from repro_torch.models.layers import rmsnorm
     from repro_torch.train.loop import batch_to_device
+    from repro_torch.tree import tree_map
 
     gb = None if reduced else train_batch
     bundle = get_cell("qwen2-0.5b", "train_4k", reduced=reduced, device=device,
@@ -3332,18 +3378,24 @@ def phase_qwen2(kernels, root, device="cuda", reduced=False, train_batch=8,
     params, step, _ = _served_params(pb, root, device)
     check(step == 6, f"prefill from step {step}")
     batch = batch_to_device(batch_for_cell(pb, 0), device)
+    n_pre = cfg.n_layers if reduced else prefill_layers
+    pcfg = dataclasses.replace(cfg, n_layers=n_pre)
+    pparams = dict(tables=params["tables"], dense=dict(
+        params["dense"], blocks=tree_map(lambda t: t[:n_pre], params["dense"]["blocks"])))
+    out["reduced"].append(f"prefill_32k through {n_pre} of {cfg.n_layers} layers")
     fa.MMA_LAUNCHES.reset()
     torch.cuda.synchronize()
     t1 = time.monotonic()
-    logits, caches = pb.step_fn(params, batch)
+    logits, caches = tf.prefill_step(pparams, batch["tokens"], pcfg)
     torch.cuda.synchronize()
     prefill_s = time.monotonic() - t1
     n_flash = fa.MMA_LAUNCHES.count
     B, S = batch["tokens"].shape
-    check(n_flash == cfg.n_layers and logits.shape == (B, 1, cfg.vocab)
+    check(n_flash == n_pre and logits.shape == (B, 1, cfg.vocab)
           and bool(torch.isfinite(logits).all())
-          and tuple(caches["k"].shape) == (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim),
+          and tuple(caches["k"].shape) == (n_pre, B, S, cfg.n_kv_heads, cfg.head_dim),
           f"prefill: {n_flash} flash launches, logits {tuple(logits.shape)}")
+    del pparams
     record_launches(kernels, "qwen2-0.5b prefill", {"flash_attention": n_flash})
     del logits, caches
     torch.cuda.empty_cache()
@@ -3353,7 +3405,8 @@ def phase_qwen2(kernels, root, device="cuda", reduced=False, train_batch=8,
         pos = torch.arange(S, device=device)[None, :]
         q, k, v = tf.project_qkv(rmsnorm(x, lp["ln1"]), lp["attn"], cfg, pos)
         del x
-        out["prefill"] = dict(batch=B, seq=S, s=prefill_s, flash_launches=n_flash,
+        out["prefill"] = dict(batch=B, seq=S, layers=n_pre, s=prefill_s,
+                              flash_launches=n_flash,
                               layer=_flash_vs_plain(kernels, "qwen2-0.5b", q, k, v,
                                                     reps=1))
         del q, k, v
@@ -3504,7 +3557,7 @@ def phase_nemotron(kernels, root, device="cuda", reduced=False, decode_steps=16)
     del table
     torch.cuda.empty_cache()
     mgr = CheckNRunManager(LocalFSStore(root), CheckpointConfig(
-        quant=PAPER_DEFAULTS[4], device=device))
+        quant=PAPER_DEFAULTS[4], device=device, decode_workers=4))
     aq.LAUNCHES.reset()
     ch.LAUNCHES.reset()
     t1 = time.monotonic()
@@ -3529,6 +3582,517 @@ def phase_nemotron(kernels, root, device="cuda", reduced=False, decode_steps=16)
                        rel_err=rel, quantizer_rel_err=rel_q, launches=launches,
                        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     log(f"nemotron-4-15b tok_emb save and restore: {json.dumps(out['save'])}")
+    del snap, rs
+    return out
+
+
+
+# The new LM phases' checkpoints: smaller chunks than the default 65,536
+# rows and more decode threads, so a restore decodes on more of the host's
+# cores at once (a chunk is decoded by one thread).
+LM_CKPT = dict(chunk_rows=16384, decode_workers=6)
+
+
+def _table_rows(store, step):
+    """Rows a committed step wrote, by table."""
+    from repro_torch.core import manifest as mf
+
+    return {n: sum(c.n_rows for c in rec.chunks) for n, rec in mf.load(store, step).tables.items()}
+
+
+def _route_launches(store, steps):
+    """``quant_pack`` launches of the saves at ``steps`` by route — one a
+    chunk, its route set by its table's width: narrow (<= 1,024), wide
+    (<= 8,192) or long."""
+    from repro_torch.core import manifest as mf
+
+    out = {"narrow": 0, "wide": 0, "long": 0}
+    for s in steps:
+        for rec in mf.load(store, s).tables.values():
+            out["narrow" if rec.dim <= 1024 else "wide" if rec.dim <= 8192 else "long"] += \
+                len(rec.chunks)
+    return out
+
+
+def _prefill_1x(kernels, arch, params, cfg, device, S):
+    """Prefill at batch 1 x ``S`` (synthetic tokens) through the flash
+    kernel, one launch a layer; → (tokens, logits, caches, figures)."""
+    import torch
+
+    from repro_torch.data import synthetic as syn
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import transformer as tf
+
+    tokens = torch.from_numpy(syn.lm_batch(syn.LMStreamConfig(
+        batch=1, seq_len=S, vocab=cfg.vocab, seed=0), 0)["tokens"]).to(device)
+    fa.MMA_LAUNCHES.reset()
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    logits, caches = tf.prefill_step(params, tokens, cfg)
+    torch.cuda.synchronize()
+    prefill_s = time.monotonic() - t1
+    n_flash = fa.MMA_LAUNCHES.count
+    check(n_flash == cfg.n_layers and bool(torch.isfinite(logits).all())
+          and tuple(logits.shape) == (1, 1, cfg.vocab),
+          f"{arch} prefill: {n_flash} flash launches for {cfg.n_layers} layers")
+    record_launches(kernels, f"{arch} prefill", {"flash_attention": n_flash})
+    return tokens, logits, caches, dict(batch=1, seq=S, layers=cfg.n_layers, s=prefill_s,
+                                        flash_launches=n_flash)
+
+
+def _layer0_qkv(params, cfg, tokens):
+    """Layer 0's prefill attention inputs (q, k, v) as the forward makes
+    them: GQA projections, or MLA's expanded heads with v padded."""
+    import torch
+
+    from repro_torch.models import layers as ly, transformer as tf
+    from repro_torch.models.embedding import take
+
+    with torch.no_grad():
+        lp = tf.layer_params(params["dense"]["blocks"], 0)
+        x = ly.rmsnorm(take(params["tables"]["tok_emb"], tokens).to(cfg.compute_dtype),
+                       lp["ln1"])
+        pos = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+        if cfg.mla:
+            parts = ly.mla_project(x, lp["mla"], cfg.mla, pos, cfg.compute_dtype)
+            return ly.mla_expand(*parts, lp["mla"], cfg.n_heads, cfg.compute_dtype)
+        return tf.project_qkv(x, lp["attn"], cfg, pos)
+
+
+def _decode_steps(params, cfg, tokens, cache, cache_len, steps):
+    """``steps`` greedy decode steps against ``cache`` from ``cache_len``;
+    → the seconds of each (the card synchronized around it)."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    dec_s = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        logits, cache = tf.decode_step(params, tokens, cache, cache_len + i, cfg)
+        torch.cuda.synchronize()
+        dec_s.append(round(time.monotonic() - t1, 4))
+        check(bool(torch.isfinite(logits).all()), f"{cfg.name} decode step {i}")
+        tokens = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    return dec_s
+
+
+def _lm_train_and_restore(kernels, arch, bundle, root, device, out):
+    """The LM phases' training: 4 steps with 4-bit adaptive saves at 2
+    (full) and 4 (the rows touched since 2), a failure, the Trainer's
+    restore at 4 and a save at 6. Checks every save's launches against its
+    chunks and every restored table within 2% of the quantizer's own round
+    trip; a tracked block's restored optimizer state (f32 beside the
+    codes) bit-identical. → (the resumed Trainer, closed; figures)."""
+    import numpy as np
+
+    from repro_torch.core import LocalFSStore
+    from repro_torch.core import manifest as mf
+
+    tr, live, fig = _train_phase(arch, bundle, root, device, 4, fail_at=4, trace=False,
+                                 ckpt_kw=LM_CKPT)
+    store = LocalFSStore(root)
+    steps = mf.list_steps(store)
+    check(steps == [2, 4], f"{arch} committed steps {steps}")
+    saves = _saved_steps(store, steps)
+    n_chunks = sum(v["chunks"] for v in saves.values())
+    check(saves[2]["kind"] == "full" and saves[4]["kind"] != "full",
+          f"{arch}: a full save, then an increment: {saves}")
+    check(fig["launches"] == {"quant_pack": n_chunks, "chunk_hash": n_chunks},
+          f"{arch} save launches {fig['launches']} == chunks written {n_chunks}")
+    rows = {st: _table_rows(store, st) for st in steps}
+    check(rows[4]["tok_emb"] < bundle.cfg.vocab, f"{arch}: the increment's tok_emb rows")
+    rs, restore_s, tr2, n6, resumed = _resume_and_save(bundle, root, fig["ckpt"], 4,
+                                                       against_manager=False)
+    errs = {name: _restore_error(f"{arch} {name}", rs.tables[name], live[name], device)
+            for name in bundle.tracked}
+    for name, sp in bundle.tracked.items():
+        if sp.path[0] == "dense":
+            check(np.array_equal(rs.tables[f"{name}.opt_acc2d"], live[f"{name}.opt_acc2d"]),
+                  f"{arch} {name}: the restored adagrad state is the saved one, bit for bit")
+    launches = {k: fig["launches"][k] + resumed[k] for k in resumed}
+    record_launches(kernels, f"{arch} train", launches)
+    out["train"] = dict(step_s=fig["step_s"], peak_train_gb=fig["peak_train_gb"],
+                        saves=saves, rows_by_table=rows, save_walls=fig["save_walls"],
+                        stall_s=fig["stall_s"], restore_s=restore_s,
+                        restore_rel_err={n: e[0] for n, e in errs.items()},
+                        quantizer_rel_err={n: e[1] for n, e in errs.items()},
+                        launches=launches,
+                        quant_pack_routes=_route_launches(store, steps + [6]),
+                        losses=fig["losses"],
+                        resumed_losses=[round(h["loss"], 5) for h in tr2.history],
+                        model_flops_per_step=bundle.model_flops)
+    log(f"{arch} train: {json.dumps(out['train'])}")
+    return tr2, fig, rows
+
+
+def phase_olmoe(kernels, root, device="cuda", reduced=False, layers=1, train_batch=4,
+                decode_batch=16, decode_steps=4, moe_tokens=64):
+    """olmoe-1b-7b at full width (d 2,048, 16 heads of 128 on 16 kv heads,
+    64 experts top-8 of d_ff 1,024, vocab 50,304) through ``layers`` of its
+    16 layers: ``train_4k`` at global batch ``train_batch`` (sequence 4,096)
+    through 4-bit adaptive saves of ``tok_emb`` (2,048 wide: quant_pack's
+    wide route) and the three expert blocks (``moe_w_up`` and
+    ``moe_w_gate`` 1,024 wide: the narrow route; ``moe_w_down`` 2,048), a
+    failure, a restore and a save. Each expert block's increment writes
+    exactly the (layer, expert) units its interval touched, expanded to
+    rows. Then, from the resumed params: prefill at 1 x 4,096 (one layer's
+    flash output held to the plain version, a planted fault outside the
+    bar), ``decode_32k`` at batch ``decode_batch``, greedy decode against a
+    full forward, and one MoE layer on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import _module
+    from repro_torch.configs._families import lm_cell
+    from repro_torch.data.cells import batch_for_cell
+    from repro_torch.models import layers as ly
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.embedding import take
+    from repro_torch.train.loop import batch_to_device
+
+    arch = "olmoe-1b-7b"
+    full = _module(arch).make_config(reduced=reduced)
+    m = full.moe
+    check(reduced or (full.n_layers, full.d_model, full.n_heads, full.n_kv_heads,
+                      full.head_dim, full.vocab, m.n_experts, m.top_k, m.d_ff, m.gated)
+          == (16, 2048, 16, 16, 128, 50304, 64, 8, 1024, True), f"{arch} at full width")
+    cfg = full if reduced else dataclasses.replace(full, n_layers=layers)
+    bundle = lm_cell(arch, cfg, "train_4k", reduced=reduced, device=device,
+                     global_batch=None if reduced else train_batch)
+    B = bundle.make_inputs()["tokens"].shape[0]
+    kv_gb = lambda b: b * 32768 * full.n_kv_heads * full.head_dim * 4 / 1e9
+    out = dict(params=full.param_count, params_gb_f32=full.param_count * 4 / 1e9,
+               params_run=cfg.param_count,
+               reduced=[f"{cfg.n_layers} of {full.n_layers} layers: training holds f32 "
+                        f"parameters, gradients and adagrad state, "
+                        f"{12 * full.param_count / 1e9:.0f} GB at full depth",
+                        f"train_4k global batch {B} of 256 (sequence kept)",
+                        f"decode_32k batch {decode_batch} of 128: decode_attention takes "
+                        f"the cache to f32 whole, {kv_gb(decode_batch):.1f} GB a layer's k "
+                        f"or v at {decode_batch}, {kv_gb(128):.1f} GB at 128",
+                        "prefill at batch 1 x 4,096"])
+    log(f"{arch} full width: {full.param_count} parameters ({out['params_gb_f32']:.2f} GB "
+        f"f32), run at {cfg.n_layers} layers ({cfg.param_count}); cuts {out['reduced']}")
+
+    # (a) train through saves, a failure and a restore
+    tr2, fig, rows = _lm_train_and_restore(kernels, arch, bundle, root, device, out)
+    touched4 = fig["touched_by_step"][3]  # after step 4: the units since the save at 2
+    units = {}
+    for name, sp in bundle.tracked.items():
+        if sp.path[0] != "dense":
+            continue
+        n_units = int(touched4[name].sum())
+        units[name] = dict(units=sp.units, touched_since_2=n_units,
+                           rows_at_2=rows[2][name], rows_at_4=rows[4][name])
+        check(rows[2][name] == sp.rows and rows[4][name] == n_units * sp.expansion,
+              f"{arch} {name}: the saves wrote {rows[2][name]} and {rows[4][name]} rows; "
+              f"{sp.rows} and {n_units} touched units x {sp.expansion}")
+    out["train"]["expert_units"] = units
+    params = tr2.state.params
+    del tr2
+    torch.cuda.empty_cache()
+
+    # (b) prefill through flash, one layer against the plain version
+    S = 64 if reduced else 4096
+    tokens, logits, caches, out["prefill"] = _prefill_1x(kernels, arch, params, cfg,
+                                                         device, S)
+    del logits, caches
+    q, k, v = _layer0_qkv(params, cfg, tokens)
+    out["prefill"]["layer"] = _flash_vs_plain(kernels, arch, q, k, v, reps=3)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # (c) decode_32k at a batch that fits
+    db = lm_cell(arch, cfg, "decode_32k", reduced=reduced, device=device,
+                 global_batch=None if reduced else decode_batch)
+    b = batch_to_device(batch_for_cell(db, 0), device)
+    out["decode"] = dict(batch=b["tokens"].shape[0], cache_positions=b["cache"]["k"].shape[2],
+                         cache_len=int(b["cache_len"]),
+                         cache_gb=sum(c.numel() * c.element_size()
+                                      for c in b["cache"].values()) / 1e9,
+                         step_s=_decode_steps(params, cfg, b["tokens"], b["cache"],
+                                              int(b["cache_len"]), decode_steps),
+                         peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del b
+    torch.cuda.empty_cache()
+    log(f"{arch} prefill {json.dumps({k: v for k, v in out['prefill'].items() if k != 'layer'})}"
+        f"; decode_32k {json.dumps(out['decode'])}")
+
+    # (d) greedy decode against a full forward, bf16
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(1, cfg.vocab, (2, 64)).astype(np.int32)).to(device)
+    rel_d = _greedy_decode_vs_forward(params, cfg, prompt, 8, 128)
+    out["decode_vs_forward_rel"] = rel_d
+    check(max(rel_d) <= 3e-2, f"{arch} decode vs full forward by step {rel_d}")
+
+    # (e) one MoE layer on the card against the same layer on the CPU
+    with torch.no_grad():
+        lp = tf.layer_params(params["dense"]["blocks"], 0)
+        h = ly.rmsnorm(take(params["tables"]["tok_emb"], tokens[:, :moe_tokens])
+                       .to(cfg.compute_dtype), lp["ln2"])
+        act = ly.act_fn(cfg.act)
+        got, got_t, got_aux = ly.moe_ffn(h, lp["moe"], m, act=act,
+                                         compute_dtype=cfg.compute_dtype)
+        cpu_p = {k: t.cpu() for k, t in lp["moe"].items()}
+        want, want_t, want_aux = ly.moe_ffn(h.cpu(), cpu_p, m, act=act,
+                                            compute_dtype=cfg.compute_dtype)
+        probs, _, _ = ly._moe_router(h.reshape(-1, h.shape[-1]).cpu(), cpu_p["router"],
+                                     m.top_k)
+        top = torch.topk(probs, m.top_k + 1, dim=-1).values
+        margin = float((top[:, m.top_k - 1] - top[:, m.top_k]).min())
+    scale = float(want.float().abs().max())
+    err = float((got.cpu().float() - want.float()).abs().max())
+    out["moe_layer_card_vs_cpu"] = dict(tokens=moe_tokens, max_abs_err=err, scale=scale,
+                                        routing_margin=margin,
+                                        aux=[float(got_aux), float(want_aux)])
+    check(torch.equal(got_t.cpu(), want_t) and err <= 3e-2 * scale,
+          f"{arch} MoE layer on the card against the CPU: {out['moe_layer_card_vs_cpu']}")
+    log(f"{arch} MoE layer card vs CPU: {json.dumps(out['moe_layer_card_vs_cpu'])}; decode "
+        f"vs forward by step {[round(x, 5) for x in rel_d]}")
+    del params, cpu_p
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_minicpm3(kernels, root, device="cuda", reduced=False, train_layers=2,
+                   train_batch=4, decode_steps=3):
+    """minicpm3-4b at full width (d 2,560, 40 heads, MLA: q_lora 768, kv_lora
+    256, qk 64 + 32, v 64; d_ff 6,400, vocab 73,472): ``train_4k`` through
+    ``train_layers`` of its 62 layers at global batch ``train_batch``,
+    through 4-bit adaptive saves of ``tok_emb`` (2,560 wide: the wide
+    route), a failure, a restore and a save. Then at full depth (4.27 B
+    parameters, 17 GB f32 on the card): prefill at 1 x 4,096 through flash at
+    head dim 96 (v padded from 64; one layer held to the plain version, a
+    planted fault outside the bar), ``long_500k`` at its full shape (batch
+    1 against a 524,288-position latent cache) for ``decode_steps`` steps,
+    and greedy decode against a full forward."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import _module
+    from repro_torch.configs._families import lm_cell
+    from repro_torch.data.cells import batch_for_cell
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.loop import batch_to_device
+
+    arch = "minicpm3-4b"
+    full = _module(arch).make_config(reduced=reduced)
+    ml = full.mla
+    check(reduced or (full.n_layers, full.d_model, full.n_heads, full.d_ff, full.vocab,
+                      ml.q_lora_rank, ml.kv_lora_rank, ml.qk_nope_dim, ml.qk_rope_dim,
+                      ml.v_head_dim)
+          == (62, 2560, 40, 6400, 73472, 768, 256, 64, 32, 64), f"{arch} at full width")
+    tcfg = full if reduced else dataclasses.replace(full, n_layers=train_layers)
+    bundle = lm_cell(arch, tcfg, "train_4k", reduced=reduced, device=device,
+                     global_batch=None if reduced else train_batch)
+    B = bundle.make_inputs()["tokens"].shape[0]
+    out = dict(params=full.param_count, params_gb_f32=full.param_count * 4 / 1e9,
+               reduced=[f"train_4k through {tcfg.n_layers} of {full.n_layers} layers: "
+                        f"parameters, gradients and adagrad state "
+                        f"{12 * full.param_count / 1e9:.0f} GB f32 at full depth",
+                        f"train_4k global batch {B} of 256 (sequence kept)",
+                        "prefill at batch 1 x 4,096 (full depth)"])
+    log(f"{arch} full width: {full.param_count} parameters ({out['params_gb_f32']:.2f} GB "
+        f"f32); cuts {out['reduced']}")
+
+    # (a) train at the depth cut through tok_emb saves, a failure, a restore
+    tr2, _, _ = _lm_train_and_restore(kernels, arch, bundle, root, device, out)
+    del tr2
+    torch.cuda.empty_cache()
+
+    # (b) full depth on the card: prefill through flash at head dim 96
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    t1 = time.monotonic()
+    params = tf.init_params(gen, full)
+    torch.cuda.synchronize()
+    out["init_s"] = time.monotonic() - t1
+    S = 64 if reduced else 4096
+    tokens, logits, caches, out["prefill"] = _prefill_1x(kernels, arch, params, full,
+                                                         device, S)
+    check(tuple(caches["ckv"].shape) == (full.n_layers, 1, S, ml.kv_lora_rank),
+          f"{arch} prefill's latent cache {tuple(caches['ckv'].shape)}")
+    del logits, caches
+    q, k, v = _layer0_qkv(params, full, tokens)
+    check(q.shape[-1] == k.shape[-1] == v.shape[-1] == ml.qk_nope_dim + ml.qk_rope_dim
+          and not v[..., ml.v_head_dim:].any(), f"{arch}: v padded to the qk head dim")
+    out["prefill"]["layer"] = _flash_vs_plain(kernels, arch, q, k, v, reps=3)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # (c) long_500k at its full shape: the latent cache made on the card
+    lb = lm_cell(arch, full, "long_500k", reduced=reduced, device=device)
+    b = batch_to_device(batch_for_cell(lb, 0), device)
+    out["long_500k"] = dict(batch=b["tokens"].shape[0],
+                            cache_positions=b["cache"]["ckv"].shape[2],
+                            cache_len=int(b["cache_len"]),
+                            cache_gb=sum(c.numel() * c.element_size()
+                                         for c in b["cache"].values()) / 1e9,
+                            step_s=_decode_steps(params, full, b["tokens"], b["cache"],
+                                                 int(b["cache_len"]), decode_steps),
+                            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                            model_flops_per_step=lb.model_flops)
+    del b
+    torch.cuda.empty_cache()
+    log(f"{arch} prefill {json.dumps({k: v for k, v in out['prefill'].items() if k != 'layer'})}"
+        f"; long_500k {json.dumps(out['long_500k'])}")
+
+    # (d) greedy decode against a full forward, bf16, full depth
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(1, full.vocab, (2, 64)).astype(np.int32)).to(device)
+    rel_d = _greedy_decode_vs_forward(params, full, prompt, 8, 128)
+    out["decode_vs_forward_rel"] = rel_d
+    check(max(rel_d) <= 3e-2, f"{arch} decode vs full forward by step {rel_d}")
+    log(f"{arch} decode vs full forward (bf16, {full.n_layers} layers, batch 2, prompt 64, "
+        f"8 steps): max |d| / logit scale by step {[round(x, 5) for x in rel_d]}")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dbrx(kernels, root, device="cuda", reduced=False, layers=1, decode_steps=4,
+               routed_tokens=1):
+    """dbrx-132b at full width (d 6,144, 48 heads on 8 kv heads of 128, 16
+    experts top-4 of d_ff 10,752, vocab 100,352) through ``layers`` of its 40
+    layers (13.0 GB f32 a layer), not trained (131.6 B parameters). Prefill
+    at 1 x 4,096 (flash 48:8 at head dim 128, one layer held to the plain
+    version), ``decode_steps`` greedy steps against a 32,768-position
+    cache. Then the expert blocks saved through ``CheckNRunManager`` at
+    4-bit adaptive — ``moe_w_up`` and ``moe_w_gate`` 10,752 wide through
+    ``quant_pack``'s long route, ``moe_w_down`` 6,144 wide through the wide
+    route — the snapshot holding the expert tables alone: a full save, then
+    the routed experts of a forward over ``routed_tokens`` tokens changed
+    and saved as an increment of exactly their units; restored within 2% of
+    the quantizer's own round trip."""
+    import torch
+
+    from repro_torch.configs import _module
+    from repro_torch.core import (CheckNRunManager, CheckpointConfig, LocalFSStore,
+                                  PAPER_DEFAULTS)
+    from repro_torch.core.snapshot import take_snapshot
+    from repro_torch.kernels.adaptive_quant import ops as aq
+    from repro_torch.kernels.chunk_hash import ops as ch
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.state import tree_get
+
+    arch = "dbrx-132b"
+    full = _module(arch).make_config(reduced=reduced)
+    m = full.moe
+    check(reduced or (full.n_layers, full.d_model, full.n_heads, full.n_kv_heads,
+                      full.head_dim, full.vocab, m.n_experts, m.top_k, m.d_ff, m.gated)
+          == (40, 6144, 48, 8, 128, 100352, 16, 4, 10752, True), f"{arch} at full width")
+    cfg = full if reduced else dataclasses.replace(full, n_layers=layers)
+    out = dict(params=full.param_count, params_gb_f32=full.param_count * 4 / 1e9,
+               params_run=cfg.param_count,
+               reduced=[f"{cfg.n_layers} of {full.n_layers} layers: "
+                        f"{(full.param_count - cfg.param_count) * 4 / 1e9:.0f} GB f32 of "
+                        f"layers not made (the card holds 80 GB)",
+                        "not trained: parameters, gradients and adagrad state "
+                        f"{12 * full.param_count / 1e9:.0f} GB",
+                        "prefill at batch 1 x 4,096",
+                        "the save's snapshot holds the expert blocks alone"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    t1 = time.monotonic()
+    params = tf.init_params(gen, cfg)
+    torch.cuda.synchronize()
+    out["init_s"] = time.monotonic() - t1
+    log(f"{arch}: {full.param_count} parameters ({out['params_gb_f32']:.1f} GB f32), "
+        f"{cfg.n_layers} layers made on the card in {out['init_s']:.1f} s; cuts "
+        f"{out['reduced']}")
+
+    # (a) prefill through flash, then greedy decode against a 32,768 cache
+    S, max_len = (64, 128) if reduced else (4096, 32768)
+    tokens, logits, caches, out["prefill"] = _prefill_1x(kernels, arch, params, cfg,
+                                                         device, S)
+    cache = tf.init_cache(cfg, 1, max_len, device=device)
+    for k in cache:
+        cache[k][:, :, :S] = caches[k]
+    del caches
+    nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    out["decode"] = dict(cache_positions=max_len, step_s=_decode_steps(
+        params, cfg, nxt, cache, S, decode_steps))
+    del cache, logits
+    q, k, v = _layer0_qkv(params, cfg, tokens)
+    torch.cuda.empty_cache()
+    out["prefill"]["layer"] = _flash_vs_plain(kernels, arch, q, k, v, reps=3)
+    del q, k, v
+
+    # (b) the routed units of a short forward
+    with torch.no_grad():
+        _, _, touched, _ = tf.forward(params, tokens[:, :routed_tokens], cfg)
+    specs = {n: sp for n, sp in tf.tracked_specs(cfg).items() if sp.path[0] == "dense"}
+    tables = {n: tree_get(params, sp.path).reshape(sp.rows, sp.dim) for n, sp in specs.items()}
+    del params
+    torch.cuda.empty_cache()
+    units = touched.reshape(-1)
+    n_units = int(units.sum())
+    check(0 < n_units < units.numel(), f"{arch}: a forward over {routed_tokens} tokens "
+          f"routed to {n_units} of {units.numel()} (layer, expert) units")
+
+    # (c) the expert blocks saved: full, then the routed units changed and
+    # saved as an increment; restored
+    mgr = CheckNRunManager(LocalFSStore(root), CheckpointConfig(
+        quant=PAPER_DEFAULTS[4], device=device, policy="one_shot", **LM_CKPT))
+    aq.LAUNCHES.reset()
+    ch.LAUNCHES.reset()
+    every = {n: torch.ones(sp.rows, dtype=torch.bool, device=device)
+             for n, sp in specs.items()}
+    t1 = time.monotonic()
+    snap = take_snapshot(1, tables, {n: {} for n in specs}, every, {}, {})
+    res1 = mgr.save(snap).result()
+    mgr.wait()
+    save1_s = time.monotonic() - t1
+    del snap, every
+    with torch.no_grad():
+        for n, sp in specs.items():
+            view = tables[n].view(sp.units, sp.expansion, sp.dim)
+            view[units] *= 1.01
+    rows_mask = {n: units.repeat_interleave(sp.expansion) for n, sp in specs.items()}
+    t1 = time.monotonic()
+    snap = take_snapshot(2, tables, {n: {} for n in specs}, rows_mask, {}, {})
+    res2 = mgr.save(snap).result()
+    mgr.wait()
+    save2_s = time.monotonic() - t1
+    del tables, rows_mask
+    torch.cuda.empty_cache()
+    store = LocalFSStore(root)
+    rows = {st: _table_rows(store, st) for st in (1, 2)}
+    saves = _saved_steps(store, [1, 2])
+    n = saves[1]["chunks"] + saves[2]["chunks"]
+    launches = {"quant_pack": aq.LAUNCHES.count, "chunk_hash": ch.LAUNCHES.count}
+    check(launches == {"quant_pack": n, "chunk_hash": n},
+          f"{arch} expert saves: {n} chunks, launches {launches}")
+    check(res2.kind == "incremental", f"{arch} second save {res2.kind}")
+    for name, sp in specs.items():
+        check(rows[1][name] == sp.rows and rows[2][name] == n_units * sp.expansion,
+              f"{arch} {name}: {rows[1][name]} and {rows[2][name]} rows saved; "
+              f"{sp.rows}, then {n_units} routed units x {sp.expansion}")
+    record_launches(kernels, f"{arch} expert saves", launches)
+    t1 = time.monotonic()
+    rs = mgr.restore()
+    restore_s = time.monotonic() - t1
+    mgr.close()
+    check(rs.step == 2, f"{arch} restored step {rs.step}")
+    errs = {name: _restore_error(f"{arch} {name}", rs.tables[name], snap.tables[name], device)
+            for name in specs}
+    out["save"] = dict(routed_tokens=routed_tokens, routed_units=n_units,
+                       units=units.numel(), rows_by_table=rows, saves=saves,
+                       save_s=[save1_s, save2_s],
+                       pipeline_s=[res1.pipeline_stats.get("wall_s"),
+                                   res2.pipeline_stats.get("wall_s")],
+                       restore_s=restore_s,
+                       restore_rel_err={n: e[0] for n, e in errs.items()},
+                       quantizer_rel_err={n: e[1] for n, e in errs.items()},
+                       launches=launches, quant_pack_routes=_route_launches(store, [1, 2]),
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"{arch} prefill {json.dumps({k: v for k, v in out['prefill'].items() if k != 'layer'})}"
+        f"; decode {json.dumps(out['decode'])}; expert saves and restore "
+        f"{json.dumps(out['save'])}")
     del snap, rs
     return out
 
@@ -3592,6 +4156,9 @@ def main(argv=None) -> int:
         in_tempdir("dimenet", phase_dimenet, kernels)
         in_tempdir("qwen2", phase_qwen2, kernels)
         in_tempdir("nemotron", phase_nemotron, kernels)
+        in_tempdir("olmoe", phase_olmoe, kernels)
+        in_tempdir("minicpm3", phase_minicpm3, kernels)
+        in_tempdir("dbrx", phase_dbrx, kernels)
         for k in kernels:
             check(k["launches"] > 0, f"{k['name']} ran on its path")
     log(f"seconds by phase: {json.dumps(phase_s)}")

@@ -1,10 +1,10 @@
 """Architecture registry: ``get_cell(arch, shape)`` → CellBundle.
 
-Ported: the recsys family (xdeepfm, dlrm-rm2, mind, bert4rec), the gnn
-family (dimenet) and the dense LMs (nemotron-4-15b, qwen2-0.5b). Still to
-come: the MoE and MLA LMs (olmoe-1b-7b, dbrx-132b, minicpm3-4b; ROADMAP
-A6.4), then the 40-cell registry's ``all_cells``, ``arch_family`` and
-``arch_shapes`` with the mesh slice (A6.5).
+Ported: every arch of the reference — the recsys family (xdeepfm,
+dlrm-rm2, mind, bert4rec), the gnn family (dimenet) and the LM family
+(nemotron-4-15b, qwen2-0.5b, olmoe-1b-7b, dbrx-132b, minicpm3-4b). Still to
+come: the 40-cell registry's ``all_cells``, ``arch_family`` and
+``arch_shapes`` with the mesh slice (ROADMAP A6.5).
 """
 
 from __future__ import annotations
@@ -15,8 +15,11 @@ from typing import List, Optional
 from ._families import CellBundle
 
 _ARCH_MODULES = {
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "dbrx-132b": "dbrx_132b",
     "nemotron-4-15b": "nemotron_4_15b",
     "qwen2-0.5b": "qwen2_0_5b",
+    "minicpm3-4b": "minicpm3_4b",
     "dimenet": "dimenet",
     "xdeepfm": "xdeepfm",
     "dlrm-rm2": "dlrm_rm2",

@@ -7,10 +7,10 @@ estimate and logical-axes map. The recsys family is ported whole: the train
 cells (dlrm-rm2's sparse DLRM step, the generic autograd step for xdeepfm,
 mind and bert4rec), the serve cells (``serve_p99``, ``serve_bulk``) and the
 retrieval cell (``retrieval_cand``: one user against C candidates) of its
-four archs. The gnn family (dimenet) is ported whole, and of the LM family
-the dense archs (qwen2-0.5b, nemotron-4-15b): train, prefill and decode
-cells. The MoE and MLA archs come with the rest of ROADMAP A6.4; the
-partition specs of every family with the mesh slice (A6.5).
+four archs. The gnn family (dimenet) and the LM family (qwen2-0.5b,
+nemotron-4-15b, the MoE archs olmoe-1b-7b and dbrx-132b, the MLA arch
+minicpm3-4b: train, prefill and decode cells) are ported whole; the
+partition specs of every family come with the mesh slice (ROADMAP A6.5).
 """
 
 from __future__ import annotations
@@ -212,11 +212,17 @@ def lm_cell(arch: str, cfg: m_tf.TransformerConfig, shape: str,
     elif kind == "decode":
         step_fn = lambda params, batch: m_tf.decode_step(
             params, batch["tokens"], batch["cache"], batch["cache_len"], cfg)
-        cache = InputSpec((cfg.n_layers, gb, seq, cfg.n_kv_heads, cfg.head_dim),
-                          torch.bfloat16)
-        inputs = dict(tokens=InputSpec((gb, 1), tok), cache=dict(k=cache, v=cache),
+        L = cfg.n_layers
+        if cfg.mla:  # the latent cache
+            cache = dict(ckv=InputSpec((L, gb, seq, cfg.mla.kv_lora_rank), torch.bfloat16),
+                         kpe=InputSpec((L, gb, seq, cfg.mla.qk_rope_dim), torch.bfloat16))
+            attn = 2.0 * gb * cfg.n_heads * seq * (cfg.mla.kv_lora_rank * 2)
+        else:
+            kv = InputSpec((L, gb, seq, cfg.n_kv_heads, cfg.head_dim), torch.bfloat16)
+            cache = dict(k=kv, v=kv)
+            attn = 4.0 * gb * cfg.n_heads * seq * cfg.head_dim
+        inputs = dict(tokens=InputSpec((gb, 1), tok), cache=cache,
                       cache_len=InputSpec((), np.int32))
-        attn = 4.0 * gb * cfg.n_heads * seq * cfg.head_dim
         flops = 2.0 * cfg.active_param_count * gb + cfg.n_layers * attn
     else:
         raise ValueError(kind)

@@ -144,18 +144,15 @@ def uniform_quantize(x: torch.Tensor, bits: int,
     return Quantized(codes, scale, zero, bits=bits)
 
 
-def dequantize(q: Quantized) -> torch.Tensor:
-    """``codes * scale + zero`` per row, rounded ONCE to f32.
-
-    The reference's XLA CPU build compiles this multiply-add into a fused
-    multiply-add, which rounds once. Here the product is formed in f64,
-    where it is exact (an 8-bit code times a 24-bit significand), and the
-    sum is rounded to odd in f64 before the final rounding to f32 — which
-    yields the correctly rounded f32 of the exact ``codes*scale + zero``,
-    i.e. the fused result bit for bit (round-to-odd at >= 26 bits makes the
-    double rounding innocuous)."""
-    p = q.codes.to(torch.float64) * q.scale.to(torch.float64)[:, None]
-    z = q.zero.to(torch.float64)[:, None].expand_as(p)
+def _fma32(codes: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor) -> torch.Tensor:
+    """``codes * scale + zero`` (scale and zero broadcast against codes),
+    rounded ONCE to f32: the product is formed in f64, where it is exact
+    (an 8-bit code times a 24-bit significand), and the sum is rounded to
+    odd in f64 before the final rounding to f32 — which yields the
+    correctly rounded f32 of the exact sum (round-to-odd at >= 26 bits
+    makes the double rounding innocuous)."""
+    p = codes.to(torch.float64) * scale.to(torch.float64)
+    z = zero.to(torch.float64).expand_as(p)
     s = p + z
     # TwoSum: err is the exact rounding error of s = p + z
     bz = s - p
@@ -165,6 +162,23 @@ def dequantize(q: Quantized) -> torch.Tensor:
                          torch.full_like(s, float("-inf")))
     s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
     return s.to(torch.float32)
+
+
+def dequantize(q: Quantized) -> torch.Tensor:
+    """``codes * scale + zero`` per row, rounded ONCE to f32: the
+    reference's XLA CPU build compiles this multiply-add into a fused
+    multiply-add, which rounds once, and ``_fma32`` gives that result bit
+    for bit. Where a row has more values than its codes have levels
+    (2^bits), each row's 2^bits results are computed once and the codes
+    look them up: the same numbers, at a 2^bits / dim share of the f64
+    arithmetic (the restore path's decode is bound by this function)."""
+    codes, scale, zero = q.codes, q.scale, q.zero
+    n_levels = 1 << q.bits
+    if codes.dim() == 2 and n_levels < codes.shape[1]:
+        levels = torch.arange(n_levels, dtype=torch.float32, device=codes.device)
+        table = _fma32(levels[None, :], scale[:, None], zero[:, None])
+        return torch.gather(table, 1, codes.to(torch.int64))
+    return _fma32(codes, scale[:, None], zero[:, None])
 
 
 def mean_l2_loss(x: torch.Tensor, deq: torch.Tensor) -> torch.Tensor:

@@ -56,9 +56,10 @@ def _lm_batch(bundle: CellBundle, specs, batch_idx: int, seed: int, rng):
     from ..models.transformer import init_cache
 
     B = specs["tokens"].shape[0]
-    smax = specs["cache"]["k"].shape[2]
+    first = list(specs["cache"].values())[0]  # k (GQA) or ckv (MLA)
+    smax = first.shape[2]
     return dict(tokens=rng.integers(0, cfg.vocab, size=(B, 1)).astype(np.int32),
-                cache=init_cache(cfg, B, smax, specs["cache"]["k"].dtype, bundle.device),
+                cache=init_cache(cfg, B, smax, first.dtype, bundle.device),
                 cache_len=np.int32(smax // 2))
 
 

@@ -59,7 +59,10 @@
 // Rows wider than 1,024 values take the wide route (row_wide.cuh, shared
 // with quant_pack.cu): one block of 256 threads a row, at most 32 values a
 // thread, up to 8,192 values, with the same candidate arithmetic and
-// window rule, the error sums added by thread, warp and block.
+// window rule, the error sums added by thread, warp and block. Rows wider
+// than 8,192 take the long route: the same block a row, the row staged in
+// shared memory where it fits (else read from device memory) and streamed
+// by every pass in the wide route's order.
 //
 // Exactness otherwise: range / levels and (max - min) / num_bins as a
 // multiply by the constant's f32 reciprocal, as the plain version does;
@@ -355,6 +358,66 @@ adaptive_quant_wide_kernel(const float* __restrict__ x, uint8_t* __restrict__ co
   }
 }
 
+// adaptive_quant's candidate error on the long route: WideAffineError's
+// sum over this thread's values t + kWideThreads * i, streamed from `row`.
+struct LongAffineError {
+  const float* row;
+  int dim;
+  float levels, inv_levels, window;
+
+  template <typename Code>
+  __device__ __forceinline__ float sum(const Range& c, Code code) const {
+    float acc = 0.f;
+    for (int i = threadIdx.x; i < dim; i += wide::kWideThreads) {
+      const float d = row[i] - (code(row[i]) * c.s + c.lo);
+      acc = acc + d * d;
+    }
+    return acc;
+  }
+  __device__ __forceinline__ float partial(float lo, float hi) const {
+    const Range c = make_range(lo, hi, inv_levels, window);
+    bool near = false;
+    const float e = sum(c, [&](float v) { return fast_code(v, c, near); });
+    if (!near) return e;
+    return sum(c, [&](float v) { return exact_code(v, c.lo, c.hi, c.s, levels); });
+  }
+  __device__ __forceinline__ float total(float, float, float s) const { return s; }
+};
+
+// The long route: one block of wide::kWideThreads a row of any width; the
+// row in dynamic shared memory when `in_smem`, else read from `x`.
+__global__ void __launch_bounds__(wide::kWideThreads)
+adaptive_quant_long_kernel(const float* __restrict__ x, uint8_t* __restrict__ codes,
+                           float* __restrict__ scale_out, float* __restrict__ zero_out,
+                           int dim, int bits, int num_bins, int n_steps, bool in_smem) {
+  extern __shared__ float srow[];
+  __shared__ float2 slot[2][wide::kWideWarps];
+  int next = 0;
+  const int t = threadIdx.x;
+  const long long row = blockIdx.x;
+  const float* xr = wide::stage_row(x + row * dim, dim, in_smem, srow);
+  const float2 mm = wide::long_minmax(xr, dim, slot, next);
+  const float levels = (float)((1 << bits) - 1);
+  const float inv_levels = 1.f / levels;
+  const LongAffineError err{xr, dim, levels, inv_levels, (levels + 1.f) * kWindowUnit};
+  const float2 best = wide::greedy_search(mm.x, mm.y, num_bins, n_steps, err, slot, next);
+  const Range c = make_range(best.x, best.y, inv_levels, err.window);
+  // as the wide route: a thread with any value in the window takes the
+  // divide for all of its values
+  uint8_t* cr = codes + row * dim;
+  bool near = false;
+  for (int i = t; i < dim; i += wide::kWideThreads)
+    cr[i] = (uint8_t)fast_code(xr[i], c, near);
+  if (near) {
+    for (int i = t; i < dim; i += wide::kWideThreads)
+      cr[i] = (uint8_t)exact_code(xr[i], c.lo, c.hi, c.s, levels);
+  }
+  if (t == 0) {
+    scale_out[row] = c.s;
+    zero_out[row] = best.x;
+  }
+}
+
 struct Args {
   const float* x;
   uint8_t* codes;
@@ -393,11 +456,21 @@ cudaError_t launch_wide(const Args& a) {
   return cudaGetLastError();
 }
 
+// The long route.
+cudaError_t launch_long(const Args& a) {
+  size_t smem;
+  const cudaError_t err = wide::long_smem(adaptive_quant_long_kernel, a.dim, smem);
+  if (err != cudaSuccess) return err;
+  adaptive_quant_long_kernel<<<a.rows, wide::kWideThreads, smem, a.stream>>>(
+      a.x, a.codes, a.scale, a.zero, a.dim, a.bits, a.num_bins, a.n_steps, smem > 0);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x: rows*dim f32, row-major, on the device; codes: rows*dim uint8; scale,
-// zero: rows f32 each. 1 <= dim <= 8192 (the wide route past 1024),
-// 1 <= bits <= 8, num_bins >= 1.
+// zero: rows f32 each. dim >= 1 (the wide route past 1,024, the long route
+// past 8,192), 1 <= bits <= 8, num_bins >= 1.
 // Returns cudaGetLastError() after the launch.
 extern "C" int adaptive_quant_launch(const void* x, void* codes, void* scale,
                                      void* zero, int rows, int dim, int bits,
@@ -417,6 +490,6 @@ extern "C" int adaptive_quant_launch(const void* x, void* codes, void* scale,
   else if (dim <= 4096) err = launch_wide<16>(a);
   else if (dim <= 6144) err = launch_wide<24>(a);
   else if (dim <= wide::kMaxDim) err = launch_wide<32>(a);
-  else err = cudaErrorInvalidValue;
+  else err = launch_long(a);
   return (int)err;
 }

@@ -42,7 +42,11 @@
 // thread builds whole words of the row's bit range; where dim*bits is not a
 // multiple of 32, a row's first and last words are shared with its
 // neighbours, so the launcher zeroes the stream first and those two words
-// are ORed in atomically (every other word is stored).
+// are ORed in atomically (every other word is stored). Rows wider than 8,192
+// take the long route (row_wide.cuh): the same block a row, the row staged
+// in shared memory where it fits (else read from device memory) and
+// streamed by every pass in the wide route's order; each word's codes are
+// computed from the row as the word is built.
 //
 // Exactness: round half to even as rint does, by adding and subtracting
 // 1.5 * 2^23 (exact for the clamped values, in [0, 255]); a true IEEE
@@ -415,6 +419,74 @@ quant_pack_wide_kernel(const float* __restrict__ x, uint32_t* __restrict__ words
   }
 }
 
+// quant_pack's candidate error on the long route: WideRangeError's terms
+// for this thread's values t + kWideThreads * i, streamed from `row`.
+struct LongRangeError {
+  const float* row;
+  int dim;
+  float levels, inv_levels;
+
+  __device__ __forceinline__ float scale(float lo, float hi) const {
+    const float rng = hi - lo;
+    return rng > 0.f ? rng * inv_levels : 1.f;
+  }
+  __device__ __forceinline__ float partial(float lo, float hi) const {
+    const float inv = __frcp_rn(scale(lo, hi));
+    float acc = 0.f;
+    for (int c = threadIdx.x; c < dim; c += wide::kWideThreads) {
+      const float r = (row[c] - lo) * inv;
+      const float d = r - round_even(fminf(fmaxf(r, 0.f), levels));
+      acc = acc + d * d;
+    }
+    return acc;
+  }
+  __device__ __forceinline__ float total(float lo, float hi, float sum) const {
+    const float s = scale(lo, hi);
+    return (s * s) * sum;
+  }
+};
+
+// The long route: one block of wide::kWideThreads a row of any width; the
+// row in dynamic shared memory when `in_smem`, else read from `x`.
+__global__ void __launch_bounds__(wide::kWideThreads)
+quant_pack_long_kernel(const float* __restrict__ x, uint32_t* __restrict__ words,
+                       float* __restrict__ scale_out, float* __restrict__ zero_out,
+                       int dim, int bits, int num_bins, int n_steps, bool in_smem) {
+  extern __shared__ float srow[];
+  __shared__ float2 slot[2][wide::kWideWarps];
+  int next = 0;
+  const int t = threadIdx.x;
+  const long long row = blockIdx.x;
+  const float* xr = wide::stage_row(x + row * dim, dim, in_smem, srow);
+  const float2 mm = wide::long_minmax(xr, dim, slot, next);
+  const float levels = (float)((1 << bits) - 1);
+  const LongRangeError err{xr, dim, levels, 1.f / levels};
+  const float2 best = wide::greedy_search(mm.x, mm.y, num_bins, n_steps, err, slot, next);
+  const float sc = err.scale(best.x, best.y);
+  if (t == 0) {
+    scale_out[row] = sc;
+    zero_out[row] = best.x;
+  }
+
+  // As the wide route's pack, each code computed from the row in place.
+  const long long b0 = row * dim * bits, b1 = b0 + (long long)dim * bits;
+  for (long long w = (b0 >> 5) + t; w <= ((b1 - 1) >> 5); w += wide::kWideThreads) {
+    const long long wb = w << 5;
+    const int p_lo = wb > b0 ? (int)((wb - b0) / bits) : 0;
+    const int p_hi = min(dim - 1, (int)((wb + 31 - b0) / bits));
+    uint32_t word = 0;
+    for (int p = p_lo; p <= p_hi; ++p) {
+      const float xc = fminf(fmaxf(xr[p], best.x), best.y);
+      const float cf = round_even(__fdiv_rn(xc - best.x, sc));
+      const uint32_t c = (uint32_t)fminf(fmaxf(cf, 0.f), levels);
+      const int sh = (int)(b0 + (long long)p * bits - wb);
+      word |= sh >= 0 ? (c << sh) : (c >> -sh);
+    }
+    if (wb >= b0 && wb + 32 <= b1) words[w] = word;
+    else atomicOr(words + w, word);
+  }
+}
+
 struct Args {
   const float* x;
   uint32_t* words;
@@ -463,12 +535,27 @@ cudaError_t launch_wide(const Args& a) {
   return cudaGetLastError();
 }
 
+// The long route. As on the wide route, rows that do not start on a word
+// boundary share words with their neighbours: the stream is zeroed first.
+cudaError_t launch_long(const Args& a) {
+  size_t smem;
+  cudaError_t err = wide::long_smem(quant_pack_long_kernel, a.dim, smem);
+  if (err != cudaSuccess) return err;
+  if ((long long)a.dim * a.bits % 32) {
+    err = cudaMemsetAsync(a.words, 0, a.nwords * 4, a.stream);
+    if (err != cudaSuccess) return err;
+  }
+  quant_pack_long_kernel<<<a.rows, wide::kWideThreads, smem, a.stream>>>(
+      a.x, a.words, a.scale, a.zero, a.dim, a.bits, a.num_bins, a.n_steps, smem > 0);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x: rows*dim f32, row-major, on the device; words: nwords =
 // ceil(rows*dim*bits/32) uint32, 16-byte aligned; scale, zero: rows f32
-// each. dim <= 8192 (the wide route past 1024), 1 <= bits <= 8. Returns
-// cudaGetLastError() after the launch.
+// each. dim >= 1 (the wide route past 1,024, the long route past 8,192),
+// 1 <= bits <= 8. Returns cudaGetLastError() after the launch.
 extern "C" int quant_pack_launch(const void* x, void* words, void* scale,
                                  void* zero, int rows, int dim, int bits,
                                  int num_bins, int n_steps, long long nwords,
@@ -489,6 +576,6 @@ extern "C" int quant_pack_launch(const void* x, void* words, void* scale,
   else if (dim <= 4096) err = launch_wide<16>(a);
   else if (dim <= 6144) err = launch_wide<24>(a);
   else if (dim <= wide::kMaxDim) err = launch_wide<32>(a);
-  else err = cudaErrorInvalidValue;
+  else err = launch_long(a);
   return (int)err;
 }

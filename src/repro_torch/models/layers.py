@@ -1,14 +1,17 @@
-"""Dense-layer building blocks, in PyTorch: the parts of
-``src/repro/models/layers.py`` that the ported models use — ``dense_init``,
-``layernorm`` and ``rmsnorm``, the activations (``act_fn``, with the
-tanh-approximated GELU), RoPE, ``chunked_attention``, the online-softmax
-attention the transformer models train through, and ``decode_attention``
-against a KV cache. The reference's MoE and MLA blocks come with the
-MoE/MLA half of ROADMAP A6.4."""
+"""Layer building blocks, in PyTorch: ``src/repro/models/layers.py`` —
+``dense_init``, ``layernorm`` and ``rmsnorm``, the activations (``act_fn``,
+with the tanh-approximated GELU), RoPE, ``chunked_attention``, the
+online-softmax attention the transformer models train through,
+``decode_attention`` against a KV cache, the mixture-of-experts FFN
+(``moe_ffn``: a top-k router and a sorted grouped product) and Multi-head
+Latent Attention (``mla_attention``: a latent KV cache, absorbed decode).
+The reference's expert-parallel dispatch (``_moe_ep_cell`` under
+``shard_map``) is mesh machinery and comes with ROADMAP A6.5."""
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -166,3 +169,237 @@ def decode_attention(q, k_cache, v_cache, cache_len) -> torch.Tensor:
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgts,bshd->bthgd", p, v_cache.to(torch.float32))
     return out.reshape(B, Tq, Hq, D).to(q.dtype)
+
+
+# ------------------------------------------------------------------- MoE
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff: int
+    gated: bool = True  # SwiGLU experts
+    capacity_factor: float = 2.0  # expert-parallel dispatch buffer (A6.5)
+    dispatch: str = "auto"        # auto | dense | ep (expert-parallel: A6.5)
+
+
+def moe_params_init(gen: torch.Generator, d_model: int,
+                    cfg: MoEConfig) -> Dict[str, torch.Tensor]:
+    E, F_ = cfg.n_experts, cfg.d_ff
+    p = dict(router=dense_init(gen, (d_model, E)),
+             w_up=dense_init(gen, (E, d_model, F_)),
+             w_down=dense_init(gen, (E, F_, d_model), scale=1.0 / np.sqrt(F_)))
+    if cfg.gated:
+        p["w_gate"] = dense_init(gen, (E, d_model, F_))
+    return p
+
+
+def _grouped_dot(a: torch.Tensor, w: torch.Tensor, sizes, compute_dtype) -> torch.Tensor:
+    """The reference's ``_ragged_dot_f32``: rows of ``a`` (m, K) in
+    consecutive groups of ``sizes`` (one a expert), group e times ``w[e]``
+    (E, K, N), operands rounded to ``compute_dtype`` and products summed in
+    f32 → (m, N) f32. One product a non-empty group, on f32 copies of the
+    rounded operands (the products of bf16 values are exact in f32), so
+    the result is not rounded to the compute dtype as a bf16 matmul's
+    would be. XLA computes the reference's; it has no Pallas kernel."""
+    a = a.to(compute_dtype).to(torch.float32)
+    # unbind and split: one stack and one cat in the backward, not a
+    # full-sized zero gradient a group
+    ws = w.to(compute_dtype).to(torch.float32).unbind(0)
+    outs = [part @ ws[e] for e, part in enumerate(a.split(sizes)) if sizes[e]]
+    if not outs:
+        return a.new_zeros((0, w.shape[-1]))
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def _moe_local(xf, ids, weights, w_up, w_gate, w_down, act, compute_dtype):
+    """Grouped-product MoE on the local tokens: the (token, slot) pairs
+    sorted by expert (stable, as ``jnp.argsort``), one product a group, no
+    capacity and no drops. The combine adds each token's k weighted
+    outputs in the sorted order — by expert, as the reference's
+    ``.at[tok].add`` does — through the inverse permutation: a gather and
+    k - 1 adds, no atomics."""
+    n, d = xf.shape
+    k = ids.shape[-1]
+    E = w_up.shape[0]
+    flat = ids.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    tok = torch.div(order, k, rounding_mode="floor")
+    xs = xf[tok].to(compute_dtype)
+    sizes = torch.bincount(flat, minlength=E).tolist()
+    h = _grouped_dot(xs, w_up, sizes, compute_dtype)
+    if w_gate is not None:
+        h = act(_grouped_dot(xs, w_gate, sizes, compute_dtype)) * h
+    else:
+        h = act(h)
+    y = _grouped_dot(h.to(compute_dtype), w_down, sizes, compute_dtype)
+    wsort = weights.reshape(-1)[order].to(torch.float32)
+    contrib = y * wsort[:, None]
+    # pair (token i, slot j) sits at sorted position inv[i*k + j]; a token's
+    # positions ascending are the reference's order of adds
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.numel(), device=order.device)
+    pos = torch.sort(inv.reshape(n, k), dim=-1).values
+    out = contrib[pos[:, 0]]
+    for j in range(1, k):
+        out = out + contrib[pos[:, j]]
+    return out
+
+
+def _moe_router(xf, router, top_k):
+    logits = xf.to(torch.float32) @ router.to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    weights, ids = torch.topk(probs, top_k, dim=-1)
+    weights = weights / torch.sum(weights, dim=-1, keepdim=True)
+    return probs, weights, ids
+
+
+def _moe_aux_loss(probs, ids, n_experts):
+    me = torch.mean(probs, dim=0)
+    ce = torch.mean(F.one_hot(ids[:, 0], n_experts).to(torch.float32), dim=0)
+    return n_experts * torch.sum(me * ce)
+
+
+def moe_ffn(x, params, cfg: MoEConfig, *, act: Callable = F.silu,
+            compute_dtype=torch.bfloat16):
+    """Mixture-of-experts FFN → (output, expert-touched mask (E,), aux loss).
+
+    The reference's ``dense`` dispatch, the one it takes without a mesh
+    (``"auto"`` resolves to it): router logits and softmax in f32, top-k,
+    the weights renormalized; the three grouped products with operands in
+    ``compute_dtype`` and f32 results; ``act(gate) * up`` in f32, cast to
+    ``compute_dtype`` before the down product; the combine in f32, the
+    output cast to ``x``'s dtype. The touched mask feeds Check-N-Run's
+    tracker: with top-k routing only the routed experts change in an
+    interval, so expert blocks checkpoint incrementally like embedding
+    rows."""
+    B, S, d = x.shape
+    if cfg.dispatch == "ep":
+        raise NotImplementedError(
+            "expert-parallel MoE dispatch needs a mesh: it comes with the mesh "
+            "slice (ROADMAP A6.5); use dispatch 'auto' or 'dense'")
+    if cfg.dispatch not in ("auto", "dense"):
+        raise ValueError(f"unknown MoE dispatch {cfg.dispatch!r}")
+    xf = x.reshape(-1, d)
+    probs, weights, ids = _moe_router(xf, params["router"], cfg.top_k)
+    out = _moe_local(xf, ids, weights, params["w_up"], params.get("w_gate"),
+                     params["w_down"], act, compute_dtype)
+    with torch.no_grad():
+        touched = torch.zeros((cfg.n_experts,), dtype=torch.bool, device=x.device)
+        touched[ids.reshape(-1)] = True
+    aux_loss = _moe_aux_loss(probs, ids, cfg.n_experts)
+    return out.reshape(B, S, d).to(x.dtype), touched, aux_loss
+
+
+# ------------------------------------------------------------------- MLA
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    q_lora_rank: int = 768
+    kv_lora_rank: int = 256
+    qk_nope_dim: int = 64
+    qk_rope_dim: int = 32
+    v_head_dim: int = 64
+
+
+def mla_params_init(gen: torch.Generator, d_model: int, n_heads: int,
+                    cfg: MLAConfig) -> Dict[str, torch.Tensor]:
+    H = n_heads
+    dev = gen.device
+    return dict(
+        w_dq=dense_init(gen, (d_model, cfg.q_lora_rank)),
+        q_norm=torch.ones((cfg.q_lora_rank,), device=dev),
+        w_uq=dense_init(gen, (cfg.q_lora_rank, H, cfg.qk_nope_dim + cfg.qk_rope_dim)),
+        w_dkv=dense_init(gen, (d_model, cfg.kv_lora_rank)),
+        kv_norm=torch.ones((cfg.kv_lora_rank,), device=dev),
+        w_kpe=dense_init(gen, (d_model, cfg.qk_rope_dim)),
+        w_uk=dense_init(gen, (cfg.kv_lora_rank, H, cfg.qk_nope_dim)),
+        w_uv=dense_init(gen, (cfg.kv_lora_rank, H, cfg.v_head_dim)),
+        w_o=dense_init(gen, (H, cfg.v_head_dim, d_model)),
+    )
+
+
+def mla_attention(x, params, cfg: MLAConfig, n_heads: int, positions, *,
+                  causal: bool = True, compute_dtype=torch.bfloat16,
+                  cache: Optional[Dict[str, torch.Tensor]] = None, cache_len=None,
+                  attention: Callable = chunked_attention):
+    """Multi-head Latent Attention (DeepSeek-V2 / MiniCPM3) → (y, cache).
+
+    Caches only the kv latent (``ckv``, kv_lora_rank wide) and the shared
+    rope key (``kpe``). Without a cache (training, prefill) k_nope and v
+    are expanded per head, the rope key broadcast to every head, v padded
+    to the qk head dim, and the heads go through ``attention``
+    (``chunked_attention``, or the flash kernel at prefill); the output is
+    sliced back to v's head dim. With a cache (decode) the new latents are
+    written into it in place at ``cache_len`` and the scores and values are
+    taken against the latents directly (W_uk absorbed into q, W_uv applied
+    after), in f32 with the f32 minimum past the valid length."""
+    B, S, d = x.shape
+    cd = compute_dtype
+    nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q_nope, q_rope, ckv_new, kpe_new = mla_project(x, params, cfg, positions, cd)
+
+    if cache is not None:
+        # in place: the values of the reference's dynamic_update_slice
+        cache["ckv"][:, cache_len:cache_len + S] = ckv_new.to(cache["ckv"].dtype)
+        cache["kpe"][:, cache_len:cache_len + S] = kpe_new.to(cache["kpe"].dtype)
+        ckv, kpe = cache["ckv"], cache["kpe"]
+        Smax = ckv.shape[1]
+        scale = 1.0 / np.sqrt(nope + rope)
+        q_abs = torch.einsum("bthd,rhd->bthr", q_nope, params["w_uk"].to(cd))
+        ckv32 = ckv.to(torch.float32)
+        s = (torch.einsum("bthr,bsr->bhts", q_abs.to(torch.float32), ckv32)
+             + torch.einsum("bthd,bsd->bhts", q_rope.to(torch.float32),
+                            kpe.to(torch.float32))) * scale
+        pos = torch.arange(Smax, device=x.device)
+        valid = pos[None, :] < torch.as_tensor(cache_len + S, device=x.device).reshape(-1, 1)
+        s = torch.where(valid[:, None, None, :], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        out_lat = torch.einsum("bhts,bsr->bthr", p, ckv32)
+        out = torch.einsum("bthr,rhd->bthd", out_lat.to(cd), params["w_uv"].to(cd))
+        new_cache = cache
+    else:
+        new_cache = dict(ckv=ckv_new, kpe=kpe_new)
+        qfull, kfull, vpad = mla_expand(q_nope, q_rope, ckv_new, kpe_new, params, n_heads, cd)
+        out = attention(qfull, kfull, vpad, causal=causal)[..., :cfg.v_head_dim]
+    y = torch.einsum("bshd,hdm->bsm", out.to(cd), params["w_o"].to(cd))
+    return y.to(x.dtype), new_cache
+
+
+def mla_project(x, params, cfg: MLAConfig, positions, compute_dtype):
+    """MLA's projections of a normed input (B, S, d) → (q_nope, q_rope
+    (B, S, H, nope / rope), the kv latent ``ckv`` (B, S, r), the rope key
+    ``kpe`` (B, S, rope)), in ``compute_dtype``, q_rope and kpe rotated."""
+    cd = compute_dtype
+    xc = x.to(cd)
+    cq = rmsnorm(xc @ params["w_dq"].to(cd), params["q_norm"])
+    q = torch.einsum("bsr,rhd->bshd", cq, params["w_uq"].to(cd))
+    q_nope, q_rope = q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
+    q_rope = apply_rope(q_rope, positions)
+    ckv = rmsnorm(xc @ params["w_dkv"].to(cd), params["kv_norm"])
+    kpe = apply_rope((xc @ params["w_kpe"].to(cd))[:, :, None, :], positions)[:, :, 0, :]
+    return q_nope, q_rope, ckv, kpe
+
+
+def mla_expand(q_nope, q_rope, ckv, kpe, params, n_heads: int, compute_dtype):
+    """Prefill's per-head attention inputs from MLA's projections: q
+    (B, S, H, nope + rope), k with k_nope expanded from the latent and the
+    rope key broadcast to every head, v expanded and zero-padded to the qk
+    head dim (one head dim for the attention kernel)."""
+    cd = compute_dtype
+    B, S, rope = kpe.shape
+    k_nope = torch.einsum("bsr,rhd->bshd", ckv.to(cd), params["w_uk"].to(cd))
+    v = torch.einsum("bsr,rhd->bshd", ckv.to(cd), params["w_uv"].to(cd))
+    k_rope = kpe[:, :, None, :].to(cd).expand(B, S, n_heads, rope)
+    qfull = torch.cat([q_nope, q_rope], dim=-1)
+    kfull = torch.cat([k_nope, k_rope], dim=-1)
+    return qfull, kfull, v_pad_to(v, kfull.shape[-1])
+
+
+def v_pad_to(v: torch.Tensor, d: int) -> torch.Tensor:
+    """``v`` zero-padded along its last axis to ``d``."""
+    if v.shape[-1] == d:
+        return v
+    return F.pad(v, (0, d - v.shape[-1]))

@@ -1,5 +1,6 @@
-"""Transformer LM family, in PyTorch: the dense models, nemotron-4-15b
-(squared-ReLU, no GLU, no bias) and qwen2-0.5b (GQA, SwiGLU, QKV bias).
+"""Transformer LM family, in PyTorch: nemotron-4-15b (squared-ReLU, no GLU,
+no bias), qwen2-0.5b (GQA, SwiGLU, QKV bias), the mixtures of experts
+olmoe-1b-7b and dbrx-132b, and minicpm3-4b (Multi-head Latent Attention).
 
 The parameter tree is the reference's (``src/repro/models/transformer.py``):
 f32 masters, every layer leaf stacked ``(L, ...)`` under ``dense/blocks``,
@@ -15,12 +16,15 @@ the token embedding the one tracked table (``tables/tok_emb``); compute in
   * Prefill: the full forward with ``attention`` — by default
     ``flash_attention``: on the card its bf16 tensor-core kernel, causal,
     with GQA; ``chunked_attention`` is its plain version.
-  * Decode: the reference's plain ``decode_attention`` against the cache.
-    The cache is written in place (the reference updates it functionally;
-    the values are the same), so a 51.5 GB cache is never copied.
-
-The reference's MoE and MLA branches (olmoe, dbrx, minicpm3) come with the
-rest of ROADMAP A6.4; a config that sets either raises.
+  * Decode: the reference's plain ``decode_attention`` against the cache
+    (MLA: the absorbed decode against the latent cache). The cache is
+    written in place (the reference updates it functionally; the values are
+    the same), so a 51.5 GB cache is never copied.
+  * MoE layers (``models.layers.moe_ffn``) return each layer's
+    expert-touched mask, stacked (L, E) by ``forward``: it marks the expert
+    blocks (``moe_w_up``, ``moe_w_gate``, ``moe_w_down``, one unit a
+    (layer, expert)) that the next incremental checkpoint writes; their
+    auxiliary load-balancing losses are summed into the training loss.
 """
 
 from __future__ import annotations
@@ -35,7 +39,8 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels.flash_attention import flash_attention
 from ..train.state import TrackedSpec
 from .embedding import take
-from .layers import act_fn, apply_rope, chunked_attention, decode_attention, rmsnorm
+from .layers import (MLAConfig, MoEConfig, act_fn, apply_rope, chunked_attention,
+                     decode_attention, mla_attention, moe_ffn, rmsnorm)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,11 +56,12 @@ class TransformerConfig:
     act: str = "silu"
     gated: bool = True
     attn_bias: bool = False
-    moe: Optional[Any] = None   # the reference's MoEConfig: ROADMAP A6.4
-    mla: Optional[Any] = None   # the reference's MLAConfig: ROADMAP A6.4
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     rope_theta: float = 1e4
     compute_dtype: torch.dtype = torch.bfloat16
     remat: bool = True
+    aux_loss_coef: float = 0.01
 
     @property
     def param_count(self) -> int:
@@ -92,13 +98,6 @@ class TransformerConfig:
         return self.param_count - full_moe + active_moe
 
 
-def _dense_only(cfg: TransformerConfig) -> None:
-    if cfg.moe or cfg.mla:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE and MLA branches are not ported yet "
-            f"(ROADMAP A6.4); the port runs the dense LMs")
-
-
 # ---------------------------------------------------------------- params
 
 
@@ -114,23 +113,45 @@ def init_params(gen: torch.Generator, cfg: TransformerConfig) -> Dict[str, Any]:
     """Random params on ``gen``'s device, in the reference's tree. Each
     stacked leaf is drawn whole, in place, so a 15.6 B-parameter model is
     made on the card without a second copy of its largest leaf."""
-    _dense_only(cfg)
     L, d = cfg.n_layers, cfg.d_model
     H, Hkv, Dh, f = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
     dev = gen.device
-    attn = dict(wq=_stacked(gen, L, (d, H, Dh)), wk=_stacked(gen, L, (d, Hkv, Dh)),
-                wv=_stacked(gen, L, (d, Hkv, Dh)),
-                wo=_stacked(gen, L, (H, Dh, d), scale=1.0 / np.sqrt(H * Dh)))
-    if cfg.attn_bias:
-        attn.update(bq=torch.zeros((L, H, Dh), device=dev),
-                    bk=torch.zeros((L, Hkv, Dh), device=dev),
-                    bv=torch.zeros((L, Hkv, Dh), device=dev))
-    ffn = dict(w1=_stacked(gen, L, (d, f)),
-               w2=_stacked(gen, L, (f, d), scale=1.0 / np.sqrt(f)))
-    if cfg.gated:
-        ffn["wg"] = _stacked(gen, L, (d, f))
-    blocks = dict(ln1=torch.ones((L, d), device=dev), ln2=torch.ones((L, d), device=dev),
-                  attn=attn, ffn=ffn)
+    blocks: Dict[str, Any] = dict(ln1=torch.ones((L, d), device=dev),
+                                  ln2=torch.ones((L, d), device=dev))
+    if cfg.mla:
+        m = cfg.mla
+        blocks["mla"] = dict(
+            w_dq=_stacked(gen, L, (d, m.q_lora_rank)),
+            q_norm=torch.ones((L, m.q_lora_rank), device=dev),
+            w_uq=_stacked(gen, L, (m.q_lora_rank, H, m.qk_nope_dim + m.qk_rope_dim)),
+            w_dkv=_stacked(gen, L, (d, m.kv_lora_rank)),
+            kv_norm=torch.ones((L, m.kv_lora_rank), device=dev),
+            w_kpe=_stacked(gen, L, (d, m.qk_rope_dim)),
+            w_uk=_stacked(gen, L, (m.kv_lora_rank, H, m.qk_nope_dim)),
+            w_uv=_stacked(gen, L, (m.kv_lora_rank, H, m.v_head_dim)),
+            w_o=_stacked(gen, L, (H, m.v_head_dim, d)))
+    else:
+        attn = dict(wq=_stacked(gen, L, (d, H, Dh)), wk=_stacked(gen, L, (d, Hkv, Dh)),
+                    wv=_stacked(gen, L, (d, Hkv, Dh)),
+                    wo=_stacked(gen, L, (H, Dh, d), scale=1.0 / np.sqrt(H * Dh)))
+        if cfg.attn_bias:
+            attn.update(bq=torch.zeros((L, H, Dh), device=dev),
+                        bk=torch.zeros((L, Hkv, Dh), device=dev),
+                        bv=torch.zeros((L, Hkv, Dh), device=dev))
+        blocks["attn"] = attn
+    if cfg.moe:
+        E, fe = cfg.moe.n_experts, cfg.moe.d_ff
+        moe = dict(router=_stacked(gen, L, (d, E)), w_up=_stacked(gen, L, (E, d, fe)),
+                   w_down=_stacked(gen, L, (E, fe, d), scale=1.0 / np.sqrt(fe)))
+        if cfg.moe.gated:
+            moe["w_gate"] = _stacked(gen, L, (E, d, fe))
+        blocks["moe"] = moe
+    else:
+        ffn = dict(w1=_stacked(gen, L, (d, f)),
+                   w2=_stacked(gen, L, (f, d), scale=1.0 / np.sqrt(f)))
+        if cfg.gated:
+            ffn["wg"] = _stacked(gen, L, (d, f))
+        blocks["ffn"] = ffn
     dense = dict(blocks=blocks, final_norm=torch.ones((d,), device=dev),
                  w_out=_stacked(gen, 1, (d, cfg.vocab))[0])
     tables = dict(tok_emb=_stacked(gen, 1, (cfg.vocab, d), scale=0.02)[0])
@@ -138,10 +159,23 @@ def init_params(gen: torch.Generator, cfg: TransformerConfig) -> Dict[str, Any]:
 
 
 def tracked_specs(cfg: TransformerConfig) -> Dict[str, TrackedSpec]:
-    """The token embedding's rows."""
-    _dense_only(cfg)
-    return {"tok_emb": TrackedSpec(path=("tables", "tok_emb"), units=cfg.vocab,
-                                   rows=cfg.vocab, dim=cfg.d_model)}
+    """The token embedding's rows; with MoE the expert blocks too, one unit
+    a (layer, expert), viewed as rows of the stacked (L, E, ...) leaf."""
+    specs = {"tok_emb": TrackedSpec(path=("tables", "tok_emb"), units=cfg.vocab,
+                                    rows=cfg.vocab, dim=cfg.d_model)}
+    if cfg.moe:
+        L, E, d, F_ = cfg.n_layers, cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff
+        specs["moe_w_up"] = TrackedSpec(path=("dense", "blocks", "moe", "w_up"),
+                                        units=L * E, rows=L * E * d, dim=F_,
+                                        rowwise_aux=False)
+        specs["moe_w_down"] = TrackedSpec(path=("dense", "blocks", "moe", "w_down"),
+                                          units=L * E, rows=L * E * F_, dim=d,
+                                          rowwise_aux=False)
+        if cfg.moe.gated:
+            specs["moe_w_gate"] = TrackedSpec(path=("dense", "blocks", "moe", "w_gate"),
+                                              units=L * E, rows=L * E * d, dim=F_,
+                                              rowwise_aux=False)
+    return specs
 
 
 # --------------------------------------------------------------- forward
@@ -195,12 +229,24 @@ def _ffn(x, p, cfg: TransformerConfig):
 
 def _layer(x, lp, cfg: TransformerConfig, positions, attention, cache=None,
            cache_len=None):
-    """One transformer block → (x, new_cache)."""
+    """One transformer block → (x, new_cache, expert-touched (E,) or None,
+    aux loss)."""
     h = rmsnorm(x, lp["ln1"])
-    a, new_cache = _attention(h, lp["attn"], cfg, positions, attention, cache, cache_len)
+    if cfg.mla:
+        a, new_cache = mla_attention(h, lp["mla"], cfg.mla, cfg.n_heads, positions,
+                                     compute_dtype=cfg.compute_dtype, cache=cache,
+                                     cache_len=cache_len, attention=attention)
+    else:
+        a, new_cache = _attention(h, lp["attn"], cfg, positions, attention, cache,
+                                  cache_len)
     x = x + a
-    x = x + _ffn(rmsnorm(x, lp["ln2"]), lp["ffn"], cfg)
-    return x, new_cache
+    h = rmsnorm(x, lp["ln2"])
+    if cfg.moe:
+        f, touched, aux = moe_ffn(h, lp["moe"], cfg.moe, act=act_fn(cfg.act),
+                                  compute_dtype=cfg.compute_dtype)
+    else:
+        f, touched, aux = _ffn(h, lp["ffn"], cfg), None, None
+    return x + f, new_cache, touched, aux
 
 
 def layer_params(blocks, l: int):
@@ -211,37 +257,45 @@ def layer_params(blocks, l: int):
 
 def forward(params, tokens, cfg: TransformerConfig, caches=None, cache_len=None,
             collect_cache: bool = False, attention: Callable = chunked_attention):
-    """Full forward. tokens (B, S) → (hidden (B, S, d), caches).
+    """Full forward. tokens (B, S) → (hidden (B, S, d), caches,
+    expert-touched (L, E) or None, aux loss summed over the layers (f32 0
+    without MoE)).
 
     ``caches`` (``init_cache``'s dict) turns it into decode: each layer
-    writes its new keys and values at ``cache_len`` in place and attends
-    over the cache; the same dict is returned. ``collect_cache`` returns the
-    layers' keys and values stacked (L, B, S, Hkv, D), as prefill does."""
-    _dense_only(cfg)
+    writes its new keys and values (MLA: latents) at ``cache_len`` in place
+    and attends over the cache; the same dict is returned.
+    ``collect_cache`` returns each layer's new cache entries stacked
+    (L, B, S, ...), as prefill does."""
     B, S = tokens.shape
     x = take(params["tables"]["tok_emb"], tokens).to(cfg.compute_dtype)
     base = 0 if cache_len is None else int(cache_len)
     positions = base + torch.arange(S, device=tokens.device)[None, :]
     blocks = params["dense"]["blocks"]
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
-    keys, values = [], []
+    collected, touched, aux = {}, [], []
     for l in range(cfg.n_layers):
         lp = layer_params(blocks, l)
         cache_l = None if caches is None else {k: c[l] for k, c in caches.items()}
         if remat:
-            x, new_cache = checkpoint(_layer, x, lp, cfg, positions, attention,
-                                      use_reentrant=False)
+            x, new_cache, t_l, a_l = checkpoint(_layer, x, lp, cfg, positions, attention,
+                                                use_reentrant=False)
         else:
-            x, new_cache = _layer(x, lp, cfg, positions, attention, cache_l, base)
+            x, new_cache, t_l, a_l = _layer(x, lp, cfg, positions, attention, cache_l, base)
         if collect_cache:
-            keys.append(new_cache["k"])
-            values.append(new_cache["v"])
+            for k, c in new_cache.items():
+                collected.setdefault(k, []).append(c)
+        if t_l is not None:
+            touched.append(t_l)
+            aux.append(a_l)
     x = rmsnorm(x, params["dense"]["final_norm"])
+    aux_loss = (torch.sum(torch.stack(aux)) if aux
+                else torch.zeros((), dtype=torch.float32, device=x.device))
+    touched = torch.stack(touched) if touched else None
     if caches is not None:
-        return x, caches
+        return x, caches, touched, aux_loss
     if collect_cache:
-        return x, dict(k=torch.stack(keys), v=torch.stack(values))
-    return x, None
+        return x, {k: torch.stack(v) for k, v in collected.items()}, touched, aux_loss
+    return x, None, touched, aux_loss
 
 
 def logits_fn(params, hidden, cfg: TransformerConfig) -> torch.Tensor:
@@ -278,16 +332,25 @@ def _ce_chunked(params, hidden, labels, cfg: TransformerConfig, s_chunk: int = 5
 
 
 def train_loss(params, batch, cfg: TransformerConfig):
-    """Causal-LM cross-entropy. Returns (loss, aux) with the tok_emb
-    touched mask."""
+    """Causal-LM cross-entropy plus ``aux_loss_coef`` times the MoE layers'
+    load-balancing loss. Returns (loss, aux) with the touched masks:
+    ``tok_emb``'s rows and, with MoE, the (layer, expert) units of the
+    three expert blocks."""
     tokens, labels = batch["tokens"], batch["labels"]
-    hidden, _ = forward(params, tokens, cfg)
+    hidden, _, touched_moe, aux_loss = forward(params, tokens, cfg)
     ce = _ce_chunked(params, hidden, labels, cfg)
+    loss = ce + cfg.aux_loss_coef * aux_loss
     with torch.no_grad():
         touched = torch.zeros((cfg.vocab,), dtype=torch.bool, device=tokens.device)
         touched[tokens.reshape(-1).to(torch.int64)] = True
-    # the dense layers have no auxiliary loss: the reference adds 0
-    return ce, dict(ce=ce.detach(), touched={"tok_emb": touched})
+    touched = {"tok_emb": touched}
+    if cfg.moe and touched_moe is not None:
+        expert_mask = touched_moe.reshape(-1)  # (L*E,)
+        touched["moe_w_up"] = expert_mask
+        touched["moe_w_down"] = expert_mask
+        if cfg.moe.gated:
+            touched["moe_w_gate"] = expert_mask
+    return loss, dict(ce=ce.detach(), aux_loss=aux_loss.detach(), touched=touched)
 
 
 # ---------------------------------------------------------------- serving
@@ -295,9 +358,17 @@ def train_loss(params, batch, cfg: TransformerConfig):
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
-    """Zero KV caches (L, batch, max_len, Hkv, D), made on ``device``."""
-    _dense_only(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    """Zero caches made on ``device``: KV (L, batch, max_len, Hkv, D), or
+    with MLA the latents ``ckv`` (L, batch, max_len, kv_lora_rank) and
+    ``kpe`` (L, batch, max_len, qk_rope_dim)."""
+    L = cfg.n_layers
+    if cfg.mla:
+        m = cfg.mla
+        return dict(ckv=torch.zeros((L, batch, max_len, m.kv_lora_rank), dtype=dtype,
+                                    device=device),
+                    kpe=torch.zeros((L, batch, max_len, m.qk_rope_dim), dtype=dtype,
+                                    device=device))
+    shape = (L, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return dict(k=torch.zeros(shape, dtype=dtype, device=device),
                 v=torch.zeros(shape, dtype=dtype, device=device))
 
@@ -306,18 +377,19 @@ def decode_step(params, tokens, caches, cache_len, cfg: TransformerConfig):
     """One decode step: tokens (B, T_new) and caches (written in place at
     ``cache_len``) → (logits (B, T_new, V), the caches). Without gradients."""
     with torch.no_grad():
-        hidden, caches = forward(params, tokens, cfg, caches=caches,
-                                 cache_len=int(cache_len))
+        hidden, caches, _, _ = forward(params, tokens, cfg, caches=caches,
+                                       cache_len=int(cache_len))
         return logits_fn(params, hidden, cfg), caches
 
 
 def prefill_step(params, tokens, cfg: TransformerConfig,
                  attention: Callable = flash_attention):
     """Prefill: the full forward → (last-position logits (B, 1, V), the KV
-    cache stacked (L, B, S, Hkv, D)). Attends through ``attention``: the
+    cache stacked (L, B, S, Hkv, D), or with MLA the latents (L, B, S, r)).
+    Attends through ``attention``: the
     ``flash_attention`` kernel on a card by default, ``chunked_attention``
     as its plain version. Without gradients."""
     with torch.no_grad():
-        hidden, caches = forward(params, tokens, cfg, collect_cache=True,
-                                 attention=attention)
+        hidden, caches, _, _ = forward(params, tokens, cfg, collect_cache=True,
+                                       attention=attention)
         return logits_fn(params, hidden[:, -1:, :], cfg), caches

@@ -23,9 +23,7 @@ PACKAGES = ["core", "train", "optim", "models.embedding", "serve", "dist", "data
 
 # reference names the port has not ported yet: {package: {name: ROADMAP entry}}
 WAITING = {
-    "dist": {"collectives": "A6.4"},
     "configs": {
-        "olmoe_1b_7b": "A6.4", "dbrx_132b": "A6.4", "minicpm3_4b": "A6.4",
         "FAMILY_SHAPES": "A6.5", "FAMILY_SHAPES_REDUCED": "A6.5", "all_cells": "A6.5",
         "arch_family": "A6.5", "arch_shapes": "A6.5",
     },

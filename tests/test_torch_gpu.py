@@ -176,8 +176,8 @@ def test_wrappers_check_their_arguments(cuda):
     with pytest.raises(ValueError):
         quant_pack_cuda(torch.zeros((8, 4), device=cuda).t(), bits=4,
                         num_bins=45, n_steps=9)
-    with pytest.raises(ValueError):  # past the wide route's 8,192
-        quant_pack_cuda(torch.zeros((4, 8193), device=cuda), bits=4,
+    with pytest.raises(ValueError):  # no route takes an empty row
+        quant_pack_cuda(torch.zeros((4, 0), device=cuda), bits=4,
                         num_bins=45, n_steps=9)
     with pytest.raises(ValueError):
         hash_words_cuda(torch.zeros(8, dtype=torch.int32, device=cuda), 9)
@@ -914,8 +914,11 @@ def test_kmeans_on_the_card_matches_the_cpu(cuda, method, bits):
 
 # The wide route (rows past 1,024 values, a block a row): widths that are
 # not a multiple of 32 (1,100, 1,025: rows share their first and last words),
-# the LMs' tok_emb widths (2,048, 2,560, 6,144) and the route's limit
-WIDE_DIMS = [1025, 1100, 2048, 2560, 6144, 8192]
+# the LMs' tok_emb widths (2,048, 2,560, 6,144) and the route's limit (8,192);
+# then the long route past it: 8,193, dbrx's expert rows (10,752), an odd
+# width (20,001) and one past the rows shared memory holds (60,001: the row
+# stays in device memory)
+WIDE_DIMS = [1025, 1100, 2048, 2560, 6144, 8192, 8193, 10752, 20001, 60001]
 
 
 @pytest.mark.parametrize("dim", WIDE_DIMS)
@@ -961,10 +964,107 @@ def test_adaptive_quant_wide_rows_match_plain(cuda, dim, bits):
 
 
 def test_wide_route_refuses_past_its_limit(cuda):
+    """The wide route's old limit (8,192) is gone: past it the long route
+    takes every width, so the wrappers refuse only what no route takes."""
     from repro_torch.kernels.adaptive_quant import ops
 
-    x = torch.zeros((2, ops.MAX_DIM + 1), device=cuda)
-    with pytest.raises(ValueError, match="8192"):
-        ops.quant_pack(x, bits=4)
-    with pytest.raises(ValueError, match="8192"):
-        ops.adaptive_quant(x, bits=4)
+    before = ops.LAUNCHES.count
+    ops.quant_pack(torch.zeros((2, 8193), device=cuda), bits=4)
+    assert ops.LAUNCHES.count == before + 1
+    for bad in (dict(x=torch.zeros((2, 0), device=cuda), bits=4),
+                dict(x=torch.zeros((2, 8193), device=cuda), bits=9)):
+        with pytest.raises(ValueError):
+            ops.quant_pack(bad["x"], bits=bad["bits"])
+        with pytest.raises(ValueError):
+            ops.adaptive_quant(bad["x"], bits=bad["bits"])
+
+
+# The MoE and MLA LMs: the MoE FFN on the card against the CPU, and the
+# flash kernel at MLA's head dim (96: qk 64 + 32, v 64 padded to 96).
+
+
+def _moe_case(arch, seed, tokens=48):
+    from repro_torch.configs import _module
+    from repro_torch.models import layers
+
+    cfg = _module(arch).make_config(reduced=True)
+    p = layers.moe_params_init(torch.Generator().manual_seed(seed), cfg.d_model, cfg.moe)
+    x = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(2, tokens // 2, cfg.d_model)).astype(np.float32))
+    probs, _, _ = layers._moe_router(x.reshape(-1, cfg.d_model), p["router"], cfg.moe.top_k)
+    top = torch.topk(probs, cfg.moe.top_k + 1, dim=-1).values
+    # no routing near-tie: ids cannot flip between the two devices' sums
+    assert float((top[:, cfg.moe.top_k - 1] - top[:, cfg.moe.top_k]).min()) > 1e-5
+    return cfg, p, x
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "dbrx-132b"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_ffn_on_the_card_matches_the_cpu(cuda, arch, dtype):
+    """The grouped products and the combine on the card: the touched mask
+    and aux loss equal, the output within 1e-5 of its scale in f32 (sums
+    in another order) and within a bf16 ulp of it in bf16."""
+    from repro_torch.models import layers
+
+    cfg, p, x = _moe_case(arch, seed=7)
+    want, want_t, want_aux = layers.moe_ffn(x.to(dtype), p, cfg.moe, compute_dtype=dtype)
+    got, got_t, got_aux = layers.moe_ffn(x.to(dtype).to(cuda),
+                                         {k: v.to(cuda) for k, v in p.items()}, cfg.moe,
+                                         compute_dtype=dtype)
+    assert torch.equal(got_t.cpu(), want_t)
+    np.testing.assert_allclose(float(got_aux), float(want_aux), rtol=1e-5)
+    scale = float(want.float().abs().max())
+    bar = 1e-5 if dtype == torch.float32 else 2 ** -8
+    assert float((got.cpu().float() - want.float()).abs().max()) <= bar * scale
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_at_mla_head_dim_96_with_v_padded(cuda, causal):
+    """minicpm3-4b's prefill shape in small: q and k of 64 + 32, v of 64
+    zero-padded to 96 (``v_pad_to``), 40 q heads on 40 kv heads; the
+    kernel within the bf16 bar of the plain version and its padded columns
+    exactly zero."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_torch
+    from repro_torch.models.layers import v_pad_to
+
+    rng = np.random.default_rng(11)
+    mk = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        cuda).to(torch.bfloat16)
+    q, k = mk(1, 700, 40, 96), mk(1, 700, 40, 96)
+    v = v_pad_to(mk(1, 700, 40, 64), 96)
+    before = ops.MMA_LAUNCHES.count
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert ops.MMA_LAUNCHES.count == before + 1
+    want = flash_attention_torch(q, k, v, causal=causal)
+    assert not got[..., 64:].any()
+    scale = float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= 3e-2 * scale
+
+
+def test_mla_prefill_on_the_card_matches_the_cpu(cuda):
+    """minicpm3-4b's reduced prefill: the flash kernel a layer on the card,
+    the plain version on the CPU; logits and latent caches within the bf16
+    bar of their scale."""
+    from repro_torch.configs import _module
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import transformer as tf
+
+    cfg = _module("minicpm3-4b").make_config(reduced=True)
+    params = tf.init_params(torch.Generator().manual_seed(3), cfg)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 96)).astype(np.int32))
+    want, want_c = tf.prefill_step(params, tokens, cfg)
+    before = ops.MMA_LAUNCHES.count
+    got, got_c = tf.prefill_step({k: _to(v, cuda) for k, v in params.items()},
+                                 tokens.to(cuda), cfg)
+    assert ops.MMA_LAUNCHES.count == before + cfg.n_layers
+    for g, w in [(got, want)] + [(got_c[k], want_c[k]) for k in ("ckv", "kpe")]:
+        scale = float(w.float().abs().max())
+        assert float((g.cpu().float() - w.float()).abs().max()) <= 3e-2 * scale
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)

@@ -158,11 +158,33 @@ def test_dequantize_bit_equal(bits):
     np.testing.assert_array_equal(got.view(np.uint32), ref.view(np.uint32))
 
 
-# Rows wider than 1,024 values (the kernels' wide route on a card): the
+@pytest.mark.parametrize("bits,dim", [(8, 300), (4, 10752), (1, 3)])
+def test_dequantize_by_table_bit_equal(bits, dim):
+    """Rows wider than their codes' 2^bits levels are dequantized by looking
+    each row's 2^bits results up (the restore path's decode): bit-equal to
+    the reference's fused multiply-add, edge scales and zeros included, as
+    are rows no wider than that (computed value by value)."""
+    rng = np.random.default_rng(dim)
+    rows = 64
+    codes = rng.integers(0, 1 << bits, (rows, dim)).astype(np.uint8)
+    scale = (rng.random(rows) * 10.0 ** rng.integers(-6, 2, rows)).astype(np.float32)
+    zero = (rng.normal(size=rows) * 10.0 ** rng.integers(-4, 3, rows)).astype(np.float32)
+    scale[:3] = [1.0, 0.0, 3e-38]
+    zero[:3] = [-0.0, 5.0, -1e-30]
+    ref = np.asarray(ref_q.dequantize(ref_q.Quantized(
+        jnp.asarray(codes), jnp.asarray(scale), jnp.asarray(zero), bits=bits)))
+    got = port_q.dequantize(port_q.Quantized(
+        torch.from_numpy(codes), torch.from_numpy(scale), torch.from_numpy(zero),
+        bits=bits)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), ref.view(np.uint32))
+
+
+# Rows wider than 1,024 values (the kernels' wide route on a card, and past
+# 8,192 the long route: dbrx's 10,752-wide experts, an odd 20,001): the
 # plain path the CPU runs against the reference's quant_pack, its jnp path
 # and, at 1,100, its Pallas kernel in interpret mode; and the unpacked
 # adaptive_quant op against the reference's
-@pytest.mark.parametrize("dim", [1100, 6144])
+@pytest.mark.parametrize("dim", [1100, 6144, 10752, 20001])
 @pytest.mark.parametrize("method,bits", [("uniform_asym", b) for b in (2, 4, 8)]
                          + [("adaptive", b) for b in (2, 4, 8)])
 def test_wide_rows_match_reference(dim, method, bits):
@@ -182,7 +204,7 @@ def test_wide_rows_match_reference(dim, method, bits):
                 packing.unpack_bits(_payload(pq), bits, pq.count))
 
 
-@pytest.mark.parametrize("dim", [1100, 6144])
+@pytest.mark.parametrize("dim", [1100, 6144, 10752, 20001])
 @pytest.mark.parametrize("bits", [2, 4, 8])
 def test_wide_rows_adaptive_quant_matches_reference(dim, bits):
     from repro.kernels.adaptive_quant import adaptive_quant as ref_aq

@@ -148,7 +148,8 @@ def test_forward_and_loss_match_reference(arch, dtype):
     tb = batch_to_device(b, "cpu")
     h_ref, _, _, _ = ref_tf.forward(ref_state.params, jnp.asarray(b["tokens"]), ref_cfg)
     with torch.no_grad():
-        h, _ = tf.forward(params, tb["tokens"], cfg)
+        h, _, touched, aux = tf.forward(params, tb["tokens"], cfg)
+    assert touched is None and float(aux) == 0.0  # dense layers: no experts
     _close(_np(h.float()), _f32(h_ref), dtype)
     ref_loss, ref_aux = ref_tf.train_loss(ref_state.params, b, ref_cfg)
     loss, aux = tf.train_loss(params, tb, cfg)
@@ -275,13 +276,19 @@ def test_full_cell_specs_and_flops_match_reference(arch, shape):
 
 
 def test_moe_and_mla_configs_raise():
+    """The MoE and MLA configs build and run in the port (A6.4,
+    ``tests/test_torch_moe.py`` and ``tests/test_torch_mla.py`` hold them
+    to the reference); what still raises is the MoE's expert-parallel
+    dispatch, which needs the mesh slice (A6.5)."""
     for arch in ("olmoe-1b-7b", "minicpm3-4b"):
-        ref_cfg = ref_module(arch).make_config(reduced=True)
-        cfg = tf.TransformerConfig(**{f.name: getattr(ref_cfg, f.name)
-                                      for f in dataclasses.fields(tf.TransformerConfig)
-                                      if f.name != "compute_dtype"})
-        with pytest.raises(NotImplementedError, match="A6.4"):
-            tf.init_params(torch.Generator(), cfg)
+        cfg = _module(arch).make_config(reduced=True)
+        params = tf.init_params(torch.Generator().manual_seed(0), cfg)
+        h = tf.forward(params, torch.zeros((1, 4), dtype=torch.int32), cfg)[0]
+        assert h.shape == (1, 4, cfg.d_model)
+        if cfg.moe:
+            ep = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch="ep"))
+            with pytest.raises(NotImplementedError, match="A6.5"):
+                tf.forward(params, torch.zeros((1, 4), dtype=torch.int32), ep)
 
 
 @pytest.mark.parametrize("quant_key", ["none", "u4"])
