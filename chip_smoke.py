@@ -112,7 +112,7 @@ Phases:
      logits bit-equal to the live model's; ``full_graph_sm``, 2 steps; a
      traced step of each trained cell. ``ogb_products`` does not fit one
      card (its reckoning is logged).
-  11. qwen2-0.5b at full width: ``train_4k`` at global batch 8 of 256
+  11. qwen2-0.5b at full width: ``train_4k`` at global batch 2 of 256
      (sequence 4,096) through 4-bit ``tok_emb`` saves, a failure at 5, a
      restore, a save at 6; ``prefill_32k`` at batch 4 of 32 from the
      restored params, one tensor-core ``flash_attention`` launch a layer
@@ -127,6 +127,19 @@ Phases:
      against a 32,768-position cache, then ``tok_emb`` (256,000 x 6,144)
      saved at 4-bit adaptive through ``quant_pack``'s wide route (4
      chunks) and restored.
+  13-15. olmoe-1b-7b, minicpm3-4b and dbrx-132b at full width, depth cut
+     (see each phase's docstring).
+  16. the dry run (``python -m repro_torch.launch.dryrun --all``, in this
+     process) on the 16 x 16 and 2 x 16 x 16 production meshes: every
+     cell's per-device bytes, built on the meta device, against the card's
+     memory, and equal to the reference's (``tests/dryrun_reference_bytes
+     .json``); nothing allocated on the card.
+  17. expert parallelism: 4 processes on the one card, a 2 x 2 (data,
+     model) mesh over a gloo group at 127.0.0.1, one olmoe-1b-7b MoE layer
+     at full width (d 2,048, 64 experts top-8, d_ff 1,024) in bf16 on 4,096
+     tokens a rank; the output held to the dense dispatch of this process
+     where nothing drops, and at the default capacity (φ = 2) to a plain
+     emulation of the capacity rule.
 
 Each path's launch counters are set to 0 just before it and read just
 after; every kernel of a path must have launched in it, and a kernel's
@@ -171,8 +184,9 @@ BIG_ROWS = 33_554_944
 # rintf's FRND, which that table does not list and is counted here with
 # them) and the reciprocal of an IEEE divide, 16. Every instruction also
 # takes an issue slot, 128 lanes per clock per SM.
-PEAK_BYTES_S = 3.35e12
-PEAK_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores
+from repro_torch.launch.mesh import HBM_BW as PEAK_BYTES_S  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as PEAK_BF16_FLOPS  # noqa: E402
+
 SMS = 132
 CLOCK_HZ = 67e12 / (SMS * 128 * 2)
 LANES_PER_CLOCK = {"fma": 128, "alu": 64, "xu": 16}
@@ -184,8 +198,12 @@ def check(cond, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
+_T0 = time.monotonic()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """Print ``msg`` after the seconds since the script started."""
+    print(f"[{time.monotonic() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
@@ -454,8 +472,20 @@ def phase_device():
         f"(nvcc time {build.last_build_s})")
     for lg in sorted(build.BUILD_DIR.glob("*.log")):
         log(f"--- {lg.name}\n{lg.read_text().strip()}")
-    log("sass: " + json.dumps(check_sass(build.library()._name)))
-    return card
+    # cuobjdump and the parse take about 20 s of the host: in a process of
+    # their own they overlap the kernel checks (``finish_sass_check``)
+    code = (f"import json, sys; sys.path.insert(0, {HERE!r}); import chip_smoke; "
+            f"print(json.dumps(chip_smoke.check_sass(sys.argv[1])))")
+    sass = subprocess.Popen([sys.executable, "-c", code, build.library()._name],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return card, sass
+
+
+def finish_sass_check(sass) -> None:
+    """Wait for phase 1's ``check_sass`` process; its failure fails the run."""
+    out, err = sass.communicate(timeout=600)
+    check(sass.returncode == 0, f"check_sass exited {sass.returncode}: {err[-3000:]}")
+    log("sass: " + out.strip())
 
 
 # ------------------------------------------------------------------ phase 2
@@ -1947,17 +1977,23 @@ def phase_sharded(kernels, root, single_host=None, device="cuda", reduced=False)
 MP_HOSTS = 4
 
 
-def _object_server(root):
+def start_object_server(root):
     """Start ``python -m repro_torch.core.object_server`` over a
-    LocalFSStore at ``root`` on 127.0.0.1; returns (process, uri)."""
-    import select
-
+    LocalFSStore at ``root`` on 127.0.0.1; ``_object_server`` waits for it
+    to listen."""
     from repro_torch.dist import host_proc
 
-    proc = subprocess.Popen(
+    return subprocess.Popen(
         [sys.executable, "-m", "repro_torch.core.object_server", "--root", root,
          "--port", "0"], env=host_proc.child_env(), stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
+
+
+def _object_server(proc):
+    """Wait for the server ``start_object_server`` started to listen;
+    returns (process, uri)."""
+    import select
+
     ready, _, _ = select.select([proc.stdout], [], [], 120)
     line = proc.stdout.readline() if ready else ""
     if not line.startswith("LISTENING"):
@@ -1967,21 +2003,31 @@ def _object_server(root):
     return proc, f"http://{host}:{port}"
 
 
-def _cli(uri, *argv, timeout=600):
-    """``python -m repro_torch.launch.ckpt`` over ``uri``: (exit code, text)."""
+def _cli(uri, *commands, timeout=600):
+    """Each of ``commands`` (argument tuples) as ``python -m
+    repro_torch.launch.ckpt`` over ``uri``, all at once: the commands read
+    the store and write nothing to it, so they wait out their interpreters'
+    start-up together. → [(exit code, text)] in order."""
     from repro_torch.dist import host_proc
 
-    p = subprocess.run([sys.executable, "-m", "repro_torch.launch.ckpt", argv[0],
-                        "--dir", uri, *argv[1:]], env=host_proc.child_env(),
-                       capture_output=True, text=True, timeout=timeout)
-    return p.returncode, p.stdout + p.stderr
+    procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.ckpt", argv[0],
+                               "--dir", uri, *argv[1:]], env=host_proc.child_env(),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for argv in commands]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    return [(p.returncode, o) for p, o in zip(procs, outs)]
 
 
 def _chunks_of(store, step):
     return {k: store.get(k) for k in store.list(f"chunks/ckpt_{step:012d}/")}
 
 
-def phase_multiprocess(kernels, root, device="cuda", reduced=False):
+def phase_multiprocess(kernels, root, device="cuda", reduced=False, server=None):
     """dlrm-rm2 at phase 4b's width and cap, saving through ``MP_HOSTS``
     host processes on the one card (``multiprocess=True``), each its own
     CUDA context, its chunks quantized and hashed by the kernels in that
@@ -1990,8 +2036,11 @@ def phase_multiprocess(kernels, root, device="cuda", reduced=False):
     full and an incremental save, each byte for byte an in-process 4-host
     save of the same snapshot; a host killed mid-save; the same step's
     drill with a host killed mid-save and respawned alone; the CLI and a
-    subscriber over the URI. ``device`` and ``reduced`` let the phase be
-    rehearsed on the CPU at the reduced cell."""
+    subscriber over the URI. ``server``: the object server, started
+    beforehand over ``root``/server (``start_object_server``), so that its
+    interpreter's start-up overlaps earlier work. ``device`` and
+    ``reduced`` let the phase be rehearsed on the CPU at the reduced
+    cell."""
     import numpy as np
 
     from repro_torch.configs import get_cell
@@ -2013,7 +2062,7 @@ def phase_multiprocess(kernels, root, device="cuda", reduced=False):
     server_root, cmp_root = os.path.join(root, "server"), os.path.join(root, "inproc")
     spill_dir = os.path.join(root, "spill")
     os.makedirs(spill_dir)
-    srv, uri = _object_server(server_root)
+    srv, uri = _object_server(server or start_object_server(server_root))
     disk = LocalFSStore(server_root)  # the server's files, read to verify
     try:
         store = make_store(uri)
@@ -2168,9 +2217,12 @@ def phase_multiprocess(kernels, root, device="cuda", reduced=False):
         del kept, snap6
 
         # (d) the CLI over the URI
-        rc, out = _cli(uri, "scan")
+        t1 = time.monotonic()
+        (rc, out), (rc_r, out_r), (rc_s, out_s) = _cli(
+            uri, ("scan",), ("recover", "--host", "1", "--device", device), ("subscribe",))
+        cli_s = time.monotonic() - t1
         check(rc == 0 and "all 3 step(s) clean" in out, f"ckpt scan: {rc} {out[-400:]}")
-        rc, out = _cli(uri, "recover", "--host", "1", "--device", device)
+        rc, out = rc_r, out_r
         m = re.search(r"recovered host 1 \(partial\) at step 6 .* ([\d,]+) bytes fetched", out)
         check(rc == 0 and m is not None, f"ckpt recover: {rc} {out[-400:]}")
         fetched = int(m.group(1).replace(",", ""))
@@ -2179,7 +2231,7 @@ def phase_multiprocess(kernels, root, device="cuda", reduced=False):
         check(fetched == planned + man_bytes,
               f"ckpt recover fetched {fetched} B == host 1's shard {planned} B + "
               f"step 6's manifest {man_bytes} B")
-        rc, out = _cli(uri, "subscribe")
+        rc, out = rc_s, out_s
         check(rc == 0 and "serving step 6" in out, f"ckpt subscribe: {rc} {out[-400:]}")
         tr.close()
         probe.close()
@@ -2193,7 +2245,7 @@ def phase_multiprocess(kernels, root, device="cuda", reduced=False):
                drill=dict(wall_s=round(drill_s, 3), respawn_s=round(respawn_s, 3),
                           chunks=n6, exit_codes=codes),
                cli_recover=dict(fetched_bytes=fetched, shard_bytes=planned,
-                                manifest_bytes=man_bytes))
+                                manifest_bytes=man_bytes), cli_s=round(cli_s, 3))
     log(f"multiprocess dlrm-rm2, {H} host processes over {uri}: {json.dumps(out)}")
     record_launches(kernels, "dlrm-rm2 host processes", path_launches)
     return out
@@ -3238,29 +3290,31 @@ def _flash_vs_plain(kernels, name, q, k, v, reps):
 def _restore_error(name, restored, live, device):
     """A 4-bit adaptive restore of a table against its live values: the
     mean |restored - live| / mean |live|, and the same for the plain
-    quantizer's own round trip of the live rows on the card (in chunks of
-    65,536 rows; the store keeps scale and zero in fp16). The restore must
-    add nothing beyond the quantizer's error (within 2%); whether that is
-    under the reference test's 0.1 depends on the rows: 4 bits of a
-    Gaussian row err 0.086 at 64 wide, 0.110 at 896 and 0.125 at 6,144 in
-    either package (``tests/test_torch_quant_pack.py``,
+    quantizer's own round trip of the live rows (the store keeps scale and
+    zero in fp16), both on the card in chunks of 65,536 rows, summed in
+    f64. The restore must add nothing beyond the quantizer's error (within
+    2%); whether that is under the reference test's 0.1 depends on the
+    rows: 4 bits of a Gaussian row err 0.086 at 64 wide, 0.110 at 896 and
+    0.125 at 6,144 in either package (``tests/test_torch_quant_pack.py``,
     ``test_adaptive_4bit_round_trip_error_by_width``)."""
-    import numpy as np
     import torch
 
     from repro_torch.kernels.adaptive_quant import ops as aq
 
     nb, ns = aq._resolve_steps("adaptive", 4, None, None)
-    q_err = 0.0
+    q_err = r_err = l_abs = 0.0
     for lo in range(0, live.shape[0], 65536):
         x = torch.from_numpy(live[lo:lo + 65536]).to(device)
         codes, scale, zero = aq._quant_torch(x, 4, nb, ns)
         deq = codes.to(torch.float32) * scale[:, None] + zero[:, None]
-        q_err += float((deq - x).abs().sum())
-        del x, codes, deq
-    mean_abs = float(np.abs(live).mean(dtype=np.float64))
-    rel = float(np.abs(restored - live).mean(dtype=np.float64)) / mean_abs
-    rel_q = q_err / live.size / mean_abs
+        q_err += float((deq - x).abs().sum(dtype=torch.float64))
+        del codes, deq
+        r = torch.from_numpy(restored[lo:lo + 65536]).to(device)
+        r_err += float((r - x).abs().sum(dtype=torch.float64))
+        l_abs += float(x.abs().sum(dtype=torch.float64))
+        del x, r
+    rel = r_err / l_abs
+    rel_q = q_err / l_abs
     check(0 < rel <= 1.02 * rel_q, f"{name} restore error {rel} against the "
           f"quantizer's own {rel_q}")
     log(f"{name} 4-bit restore error {rel:.5f}, the quantizer's own round trip "
@@ -3297,24 +3351,24 @@ def _greedy_decode_vs_forward(params, cfg, prompt, n_steps, max_len):
 
 
 def phase_qwen2(kernels, root, device="cuda", reduced=False, train_batch=8,
-                prefill_batch=4, decode_steps=8, prefill_layers=2):
-    """qwen2-0.5b at full width (24 layers, d 896, 14 heads on 2 kv heads
-    of 64, d_ff 4,864, vocab 151,936): ``train_4k`` at global batch
-    ``train_batch`` of 256 (sequence 4,096) through 4-bit adaptive saves
-    every 2 steps (``tok_emb``, 151,936 x 896, through ``quant_pack``'s
-    narrow route), a failure, a restore and a save at 6; ``prefill_32k`` at
-    batch ``prefill_batch`` of 32 (sequence 32,768) through the first
-    ``prefill_layers`` of the restored params' 24 layers (each layer 1.47 s
-    of the flash kernel at this shape on an H100), every layer's attention
-    one ``flash_attention`` launch, one layer's held against the plain
-    version and timed beside SDPA;
-    ``decode_32k`` at its full shape (batch 128, a 32,768-position cache,
-    ``cache_len`` 16,384); decode against a full forward (batch 2, prompt
-    64, 8 greedy steps)."""
+                train_layers=6, prefill_batch=4, decode_steps=8, prefill_layers=2):
+    """qwen2-0.5b at full width (d 896, 14 heads on 2 kv heads of 64, d_ff
+    4,864, vocab 151,936) and ``train_layers`` of its 24 layers:
+    ``train_4k`` at global batch ``train_batch`` of 256 (sequence 4,096)
+    through 4-bit adaptive saves every 2 steps (``tok_emb``, 151,936 x 896,
+    through ``quant_pack``'s narrow route), a failure, a restore and a save
+    at 6; ``prefill_32k`` at batch ``prefill_batch`` of 32 (sequence 32,768)
+    through the first ``prefill_layers`` of the restored params' layers
+    (each layer 1.47 s of the flash kernel at this shape on an H100), every
+    layer's attention one ``flash_attention`` launch, one layer's held
+    against the plain version and timed beside SDPA; ``decode_32k`` at its
+    full shape (batch 128, a 32,768-position cache, ``cache_len`` 16,384);
+    decode against a full forward (batch 2, prompt 64, 8 greedy steps)."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_cell
+    from repro_torch.configs import _module
+    from repro_torch.configs._families import lm_cell
     from repro_torch.core import LocalFSStore
     from repro_torch.core import manifest as mf
     from repro_torch.data.cells import batch_for_cell
@@ -3325,19 +3379,26 @@ def phase_qwen2(kernels, root, device="cuda", reduced=False, train_batch=8,
     from repro_torch.train.loop import batch_to_device
     from repro_torch.tree import tree_map
 
-    gb = None if reduced else train_batch
-    bundle = get_cell("qwen2-0.5b", "train_4k", reduced=reduced, device=device,
-                      global_batch=gb)
-    cfg, specs = bundle.cfg, bundle.make_inputs()
-    check(reduced or (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                      cfg.head_dim, cfg.d_ff, cfg.vocab) == (24, 896, 14, 2, 64, 4864, 151936)
+    arch = "qwen2-0.5b"
+    full = _module(arch).make_config(reduced=reduced)
+    cfg = full if reduced else dataclasses.replace(full, n_layers=train_layers)
+    cell = lambda shape, gb=None: lm_cell(arch, cfg, shape, reduced=reduced, device=device,
+                                          global_batch=None if reduced else gb)
+    bundle = cell("train_4k", train_batch)
+    specs = bundle.make_inputs()
+    check(reduced or (full.n_layers, full.d_model, full.n_heads, full.n_kv_heads,
+                      full.head_dim, full.d_ff, full.vocab) == (24, 896, 14, 2, 64, 4864, 151936)
           and specs["tokens"].shape == (train_batch, 4096), "qwen2-0.5b at full width")
-    out = dict(params=cfg.param_count, params_gb_f32=cfg.param_count * 4 / 1e9,
-               reduced=[f"train_4k global batch {specs['tokens'].shape[0]} of 256 "
+    out = dict(params=full.param_count, params_gb_f32=full.param_count * 4 / 1e9,
+               params_run=cfg.param_count,
+               reduced=[f"{cfg.n_layers} of {full.n_layers} layers trained, restored and "
+                        f"decoded (the smoke's time)",
+                        f"train_4k global batch {specs['tokens'].shape[0]} of 256 "
                         f"(sequence kept; n_micro 1 by lm_cell's rule)",
                         f"prefill_32k batch {prefill_batch} of 32 (sequence kept)"])
-    log(f"qwen2-0.5b full width: {cfg.param_count} parameters "
-        f"({out['params_gb_f32']:.2f} GB f32); cuts {out['reduced']}")
+    log(f"qwen2-0.5b full width: {full.param_count} parameters "
+        f"({out['params_gb_f32']:.2f} GB f32), run at {cfg.n_layers} layers "
+        f"({cfg.param_count}); cuts {out['reduced']}")
 
     # (a) train: saves at 2 (full) and 4, a failure, a restore, a save at 6
     tr, live, fig = _train_phase("qwen2-0.5b", bundle, root, device, 4, fail_at=4,
@@ -3373,8 +3434,7 @@ def phase_qwen2(kernels, root, device="cuda", reduced=False, train_batch=8,
     torch.cuda.empty_cache()
 
     # (b) prefill from the restored params, through flash_attention
-    pb = get_cell("qwen2-0.5b", "prefill_32k", reduced=reduced, device=device,
-                  global_batch=None if reduced else prefill_batch)
+    pb = cell("prefill_32k", prefill_batch)
     params, step, _ = _served_params(pb, root, device)
     check(step == 6, f"prefill from step {step}")
     batch = batch_to_device(batch_for_cell(pb, 0), device)
@@ -3414,7 +3474,7 @@ def phase_qwen2(kernels, root, device="cuda", reduced=False, train_batch=8,
     log(f"qwen2-0.5b prefill ({B}, {S}): {prefill_s:.2f} s, {n_flash} flash launches")
 
     # (c) decode_32k at its full shape: the cache made on the card
-    db = get_cell("qwen2-0.5b", "decode_32k", reduced=reduced, device=device)
+    db = cell("decode_32k")
     b = batch_to_device(batch_for_cell(db, 0), device)
     cache_gb = sum(c.numel() * c.element_size() for c in b["cache"].values()) / 1e9
     cache_len, tokens = int(b["cache_len"]), b["tokens"]
@@ -4098,6 +4158,284 @@ def phase_dbrx(kernels, root, device="cuda", reduced=False, layers=1, decode_ste
 
 
 
+# ------------------------------------------------------------------ phase 16
+
+DRYRUN_TABLE = os.path.join(HERE, "tests", "dryrun_reference_bytes.json")
+
+
+def _kernel_counters():
+    """Every kernel's launch counter."""
+    from repro_torch.kernels.adaptive_quant import ops as aq
+    from repro_torch.kernels.chunk_hash import ops as ch
+    from repro_torch.kernels.dot_interaction import ops as di
+    from repro_torch.kernels.embedding_bag import ops as eb
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    return {"quant_pack": aq.LAUNCHES, "adaptive_quant": aq.ADAPTIVE_QUANT_LAUNCHES,
+            "chunk_hash": ch.LAUNCHES, "embedding_bag": eb.LAUNCHES,
+            "dot_interaction": di.LAUNCHES, "flash_attention_mma": fa.MMA_LAUNCHES,
+            "flash_attention_f32": fa.SIMT_LAUNCHES}
+
+
+def _no_kernel_path(counters, what):
+    counts = {k: c.count for k, c in counters.items()}
+    check(not any(counts.values()), f"{what} runs no hand-written kernel: {counts}")
+
+
+def phase_dryrun(root):
+    """The dry run's CLI over the 40 cells on both production meshes, in
+    this process: a line a cell with its per-device GB against the card's
+    memory; each cell's bytes (state or params, and inputs) equal to the
+    reference's table; no memory taken on the card."""
+    import torch
+
+    from repro_torch.configs import all_cells
+    from repro_torch.launch import dryrun
+
+    counters = _kernel_counters()
+    for c in counters.values():
+        c.reset()
+    with open(DRYRUN_TABLE) as f:
+        table = json.load(f)
+    card = torch.cuda.get_device_properties(0).total_memory
+    allocated = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    out = {}
+    for mesh, tag, flag in (("16x16", "pod", []), ("2x16x16", "multipod", ["--multi-pod"])):
+        d = os.path.join(root, mesh)
+        check(dryrun.main(["--all", "--out", d] + flag) == 0, f"dry run on {mesh}")
+        fits = 0
+        for arch, shape in all_cells():
+            with open(os.path.join(d, f"dryrun_{arch}_{shape}_{tag}.json")) as f:
+                rec = json.load(f)
+            split = rec["memory"]["argument_split"]
+            got = dict(tree=split.get("state", split.get("params")), inputs=split["inputs"])
+            want = table[mesh][f"{arch}/{shape}"]
+            check(got == want, f"dry run {arch} {shape} {mesh}: bytes {got} == the "
+                  f"reference's {want}")
+            check(rec["card_bytes"] == card
+                  and rec["fits_card"] == (rec["memory"]["argument_size"] <= card),
+                  f"{arch} {shape} {mesh} against the card's {card} B")
+            fits += rec["fits_card"]
+        top = max(all_cells(), key=lambda c: sum(table[mesh][f"{c[0]}/{c[1]}"].values()))
+        out[mesh] = dict(cells=len(all_cells()), fit_the_card=fits,
+                         largest=f"{top[0]} {top[1]}",
+                         largest_gb=sum(table[mesh][f"{top[0]}/{top[1]}"].values()) / 1e9)
+    check(torch.cuda.memory_allocated() == allocated, "the dry run took no card memory")
+    _no_kernel_path(counters, "the dry run")
+    out.update(card_gb=card / 1e9, seconds=round(time.monotonic() - t0, 2))
+    log(f"dry run: {json.dumps(out)}")
+    return out
+
+
+# ------------------------------------------------------------------ phase 17
+
+EP_DATA, EP_MODEL = 2, 2
+EP_TOKENS = 4096  # a rank's tokens
+EP_SKEW = 0.5
+
+
+def _ep_inputs(device, reduced):
+    """olmoe-1b-7b's MoE config (the reduced one when ``reduced``), its
+    layer's params and the (data, tokens, d) bf16 input, drawn on
+    ``device`` from one seed: every process that calls this holds the same
+    numbers. The tokens share a component (``EP_SKEW`` times one normal
+    vector), which loads the experts unevenly, as a trained layer's
+    routing does: at the default φ the busiest experts overflow, and the
+    phase checks that some pairs drop."""
+    import torch
+
+    from repro_torch.configs import _module
+    from repro_torch.models.layers import moe_params_init
+
+    cfg = _module("olmoe-1b-7b").make_config(reduced=reduced)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(17)
+    params = moe_params_init(gen, cfg.d_model, cfg.moe)
+    n = 64 if reduced else EP_TOKENS
+    x = torch.randn((EP_DATA, n, cfg.d_model), generator=gen, device=device)
+    x += EP_SKEW * torch.randn((cfg.d_model,), generator=gen, device=device)
+    return cfg.moe, params, x.to(torch.bfloat16)
+
+
+def _ep_capacity(moe, n, phi):
+    return min(max(int(phi * n * moe.top_k / moe.n_experts), 8), n)
+
+
+def ep_worker(argv) -> int:
+    """One rank of phase 17: joins the gloo group, lays the 2 x 2 mesh,
+    runs its batch shard through ``moe_ffn(dispatch="ep")`` at φ = E / k
+    (nothing drops) and at the default φ, saves its outputs under ``root``
+    and prints its figures as a JSON line."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    rank, world, port, root, device, reduced = argv
+    rank, world, reduced = int(rank), int(world), reduced == "1"
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        from repro_torch.dist.sharding import lm_rules
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.models.layers import _moe_router, moe_ffn
+
+        mesh = make_host_mesh(EP_DATA, EP_MODEL)
+        i, j = mesh.axis_index("data"), mesh.axis_index("model")
+        moe, params, x = _ep_inputs(device, reduced)
+        x_l = x[i:i + 1]
+        rules = lm_rules(mesh)
+        e_l = moe.n_experts // EP_MODEL
+        _, _, ids = _moe_router(x_l[0], params["router"], moe.top_k)
+        # the rank holds the router and its own experts, as a shard_map cell does
+        params = dict(router=params["router"], **{
+            k: params[k][j * e_l:(j + 1) * e_l] for k in ("w_up", "w_gate", "w_down")})
+        counts = torch.bincount(ids.reshape(-1), minlength=moe.n_experts)[j * e_l:(j + 1) * e_l]
+        rec = dict(rank=rank, data=i, model=j, tokens=x_l.shape[1])
+        for name, phi in (("nodrop", moe.n_experts / moe.top_k), ("default", moe.capacity_factor)):
+            cfg = dataclasses.replace(moe, capacity_factor=phi, dispatch="ep")
+            cap = _ep_capacity(moe, x_l.shape[1], phi)
+            y, touched, aux = moe_ffn(x_l, params, cfg, compute_dtype=torch.bfloat16,
+                                      rules=rules)
+            ms = []
+            for _ in range(3):
+                dist.barrier()
+                t0 = time.monotonic()
+                moe_ffn(x_l, params, cfg, compute_dtype=torch.bfloat16, rules=rules)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                ms.append((time.monotonic() - t0) * 1e3)
+            torch.save(dict(y=y.cpu(), touched=touched.cpu(), aux=aux.cpu()),
+                       os.path.join(root, f"ep_{name}_{rank}.pt"))
+            rec[name] = dict(capacity=cap, dropped=int((counts - cap).clamp(min=0).sum()),
+                             ms=round(statistics.median(ms), 3))
+        print(json.dumps(rec), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _moe_capacity_plain(x_l, params, moe, cap, cd):
+    """The capacity rule, plainly, on one batch shard (n, d): the router
+    (f32 softmax, top-k, the weights renormalized) and the aux loss written
+    out here, then every expert of the layer in turn takes the first
+    ``cap`` of the tokens routed to it, in token order, and adds their
+    gated outputs. → (out (n, d) f32, the routed ids, the shard's aux
+    loss)."""
+    import torch
+    import torch.nn.functional as F
+
+    E, k = moe.n_experts, moe.top_k
+    probs = torch.softmax(x_l.to(torch.float32) @ params["router"].to(torch.float32), -1)
+    w, ids = torch.topk(probs, k, dim=-1)
+    w = w / w.sum(-1, keepdim=True)
+    first = torch.zeros_like(probs).scatter_(1, ids[:, :1], 1.0)
+    aux = E * torch.sum(probs.mean(0) * first.mean(0))
+    out = torch.zeros(x_l.shape, dtype=torch.float32, device=x_l.device)
+    for e in range(E):
+        hit = ids == e
+        rows = torch.nonzero(hit.any(-1)).flatten()[:cap]
+        g = (w * hit).sum(-1)[rows]
+        xs = x_l[rows].to(cd)
+        h = F.silu(xs @ params["w_gate"][e].to(cd)).to(cd) * (xs @ params["w_up"][e].to(cd))
+        out[rows] += (h @ params["w_down"][e].to(cd)).to(torch.float32) * g[:, None]
+    return out, ids, aux
+
+
+EP_DENSE_BAR = 2 ** -6  # ep (bf16 products) vs dense (f32 products), of the row scale
+EP_PLAIN_BAR = 2 ** -7  # ep vs the plain capacity rule: bf16 products of other shapes
+
+
+def phase_moe_ep(root, device="cuda", reduced=False):
+    """Expert-parallel MoE over 4 processes on the one card (2 x 2 mesh,
+    gloo at 127.0.0.1): each rank's output against this process's dense
+    dispatch of its batch shard where nothing drops, and against the plain
+    capacity rule at the default φ; touched masks and aux losses against
+    the shards' routing. A rank that fails fails the phase."""
+    import socket
+
+    import torch
+
+    from repro_torch.models.layers import moe_ffn
+
+    counters = _kernel_counters()
+    for c in counters.values():
+        c.reset()
+    t0 = time.monotonic()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    world = EP_DATA * EP_MODEL
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"), OMP_NUM_THREADS="1")
+    code = (f"import sys; sys.path.insert(0, {HERE!r}); import chip_smoke; "
+            f"sys.exit(chip_smoke.ep_worker(sys.argv[1:]))")
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(world), str(port),
+                               root, device, "1" if reduced else "0"],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              env=env, cwd=HERE)
+             for r in range(world)]
+    try:
+        moe, params, x = _ep_inputs(device, reduced)
+        cd = torch.bfloat16
+        dense, plain = [], []
+        for i in range(EP_DATA):
+            cfg = dataclasses.replace(moe, dispatch="dense")
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t1 = time.monotonic()
+            y, _, _ = moe_ffn(x[i:i + 1], params, cfg, compute_dtype=cd)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            dense.append((y[0].to(torch.float32), (time.monotonic() - t1) * 1e3))
+            cap = _ep_capacity(moe, x.shape[1], moe.capacity_factor)
+            plain.append(_moe_capacity_plain(x[i], params, moe, cap, cd))
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for r, (p, (o, e)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"ep rank {r} exited {p.returncode}: {e[-3000:]}")
+    ranks = [json.loads(o.strip().splitlines()[-1]) for o, _ in outs]
+    touched_want = torch.zeros(moe.n_experts, dtype=torch.bool)
+    for _, ids, _ in plain:
+        touched_want[ids.reshape(-1).cpu()] = True
+    aux_want = float(sum(a for _, _, a in plain)) / EP_DATA
+    errs = {}
+    for rec in ranks:
+        r, i = rec["rank"], rec["data"]
+        for name in ("nodrop", "default"):
+            got = torch.load(os.path.join(root, f"ep_{name}_{r}.pt"))
+            want = dense[i][0] if name == "nodrop" else plain[i][0]
+            want = want.cpu()
+            y = got["y"][0].to(torch.float32)
+            scale = float(want.abs().max())
+            err = float((y - want).abs().max()) / scale
+            bar = EP_DENSE_BAR if name == "nodrop" else EP_PLAIN_BAR
+            errs[f"{name} rank {r}"] = err
+            check(torch.isfinite(y).all() and err <= bar,
+                  f"ep {name} rank {r}: max error {err:.3e} of the row scale <= {bar}")
+            twin = torch.load(os.path.join(root, f"ep_{name}_{i * EP_MODEL}.pt"))
+            check(torch.equal(got["y"], twin["y"]), f"ep {name}: the model ranks of batch "
+                  f"shard {i} hold one sum")
+            check(torch.equal(got["touched"], touched_want), f"ep {name} rank {r} touched")
+            check(abs(float(got["aux"]) - aux_want) <= 1e-5 * max(abs(aux_want), 1.0),
+                  f"ep {name} rank {r} aux {float(got['aux'])} vs {aux_want}")
+        check(rec["nodrop"]["dropped"] == 0, f"rank {r} dropped at φ = E / k: {rec}")
+    check(sum(rec["default"]["dropped"] for rec in ranks) > 0,
+          f"the default φ dropped tokens, so the capacity rule is exercised: {ranks}")
+    _no_kernel_path(counters, "the dense and plain MoE")
+    out = dict(card=card_name(), ranks=ranks, max_rel_err=errs,
+               dense_ms=[round(ms, 3) for _, ms in dense],
+               tokens_dropped={f"rank {rec['rank']}": rec["default"]["dropped"]
+                               for rec in ranks},
+               seconds=round(time.monotonic() - t0, 2))
+    log(f"moe ep: {json.dumps(out)}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -4126,8 +4464,11 @@ def main(argv=None) -> int:
             shutil.rmtree(root, ignore_errors=True)
             mark(tag)
 
-    card = phase_device()
-    kernels = phase_kernels()
+    card, sass = phase_device()
+    try:
+        kernels = phase_kernels()
+    finally:
+        finish_sass_check(sass)
     mark("device and kernels")
     if not args.kernels_only:
         root = tempfile.mkdtemp(prefix="cnr-chip-smoke-")
@@ -4143,8 +4484,18 @@ def main(argv=None) -> int:
                 trainer.close()
             shutil.rmtree(root, ignore_errors=True)
             mark("dlrm-rm2")
-        in_tempdir("sharded", lambda root: phase_sharded(kernels, root, single_host))
-        in_tempdir("mp", phase_multiprocess, kernels)
+        # the host-process phase's object server imports torch (10-20 s of
+        # the host) while the sharded phase runs
+        mp_root = tempfile.mkdtemp(prefix="cnr-chip-smoke-mp-")
+        server = start_object_server(os.path.join(mp_root, "server"))
+        try:
+            in_tempdir("sharded", lambda root: phase_sharded(kernels, root, single_host))
+            phase_multiprocess(kernels, mp_root, server=server)
+        finally:
+            server.kill()
+            server.wait()
+            shutil.rmtree(mp_root, ignore_errors=True)
+            mark("mp")
         in_tempdir("b4r", phase_bert4rec, kernels)
         in_tempdir("xdeepfm", phase_xdeepfm, kernels)
         trained, _ = in_tempdir("mind", phase_mind, kernels)
@@ -4159,6 +4510,8 @@ def main(argv=None) -> int:
         in_tempdir("olmoe", phase_olmoe, kernels)
         in_tempdir("minicpm3", phase_minicpm3, kernels)
         in_tempdir("dbrx", phase_dbrx, kernels)
+        in_tempdir("dryrun", phase_dryrun)
+        in_tempdir("moe-ep", phase_moe_ep)
         for k in kernels:
             check(k["launches"] > 0, f"{k['name']} ran on its path")
     log(f"seconds by phase: {json.dumps(phase_s)}")

@@ -1,16 +1,24 @@
 """Family-level cell builders: (arch config × shape) → CellBundle.
 
 A CellBundle is everything one cell needs: the step callable, the input
-specs, the tracked specs for Check-N-Run, the optimizer, the device it all
-lives on, and for the gnn and LM cells the reference's ``MODEL_FLOPS``
-estimate and logical-axes map. The recsys family is ported whole: the train
-cells (dlrm-rm2's sparse DLRM step, the generic autograd step for xdeepfm,
-mind and bert4rec), the serve cells (``serve_p99``, ``serve_bulk``) and the
-retrieval cell (``retrieval_cand``: one user against C candidates) of its
-four archs. The gnn family (dimenet) and the LM family (qwen2-0.5b,
-nemotron-4-15b, the MoE archs olmoe-1b-7b and dbrx-132b, the MLA arch
-minicpm3-4b: train, prefill and decode cells) are ported whole; the
-partition specs of every family come with the mesh slice (ROADMAP A6.5).
+specs and their partition specs, the sharding rules, the tracked specs for
+Check-N-Run, the optimizer, the device it all lives on, the ``MODEL_FLOPS``
+estimate of the roofline report and the logical-axes map of the params.
+The recsys family: the train cells (dlrm-rm2's sparse DLRM step, the
+generic autograd step for xdeepfm, mind and bert4rec), the serve cells
+(``serve_p99``, ``serve_bulk``) and the retrieval cell (``retrieval_cand``:
+one user against C candidates) of its four archs. The gnn family
+(dimenet) and the LM family (qwen2-0.5b, nemotron-4-15b, the MoE archs
+olmoe-1b-7b and dbrx-132b, the MLA arch minicpm3-4b: train, prefill and
+decode cells).
+
+Partition specs follow the reference's rules leaf for leaf. The port's
+state tree differs from the reference's in two leaves, and each takes the
+reference's spec: ``step`` is a host int where the reference holds an
+int32 scalar, and ``rng`` is the key's data, a ``uint32 (2,)`` host array,
+where the reference holds a typed key; both are replicated (``P()``), and
+the dry run counts them as the int32 scalar and the ``uint32 (2,)`` the
+reference's arrays are on a device.
 """
 
 from __future__ import annotations
@@ -21,7 +29,8 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import on_meta, resolve_device
+from ..dist.sharding import P, ShardingRules, gnn_rules, lm_rules, recsys_rules
 from ..models import bert4rec as m_bert4rec
 from ..models import dimenet as m_dimenet
 from ..models import dlrm as m_dlrm
@@ -31,6 +40,7 @@ from ..models import xdeepfm as m_xdeepfm
 from ..optim.optimizers import adagrad, rowwise_adagrad, split_optimizer
 from ..train.state import TrackedSpec, TrainState, init_train_state, rng_key_data
 from ..train.steps import make_train_step
+from ..tree import keystr, map_with_path
 from . import shapes as S
 
 
@@ -53,8 +63,10 @@ class CellBundle:
     make_inputs: Callable           # () -> {name: InputSpec}
     tracked: Dict[str, TrackedSpec]
     optimizer: Any
-    model_flops: Optional[float] = None     # gnn and LM cells
-    param_axes_fn: Optional[Callable] = None  # (path_str, shape) -> logical axes
+    model_flops: float
+    param_axes_fn: Callable         # (path_str, shape) -> logical axes tuple
+    rules: ShardingRules
+    input_pspecs: Any               # {name: PartitionSpec} (cache: a dict or None)
 
     def make_state(self, seed: int = 0) -> TrainState:
         """A fresh TrainState on the bundle's device, params drawn from a
@@ -65,9 +77,72 @@ class CellBundle:
         return init_train_state(params, self.optimizer, self.tracked,
                                 rng_key_data(1), self.device)
 
+    # ------------------------------------------------ derived specs
+    def params_shapes(self):
+        """The params tree on the ``meta`` device: shapes and dtypes, no
+        storage (the reference's ``jax.eval_shape`` of ``init``)."""
+        with on_meta():
+            return self.init(torch.Generator())
+
+    def params_pspecs(self, params_shapes=None):
+        ps = params_shapes if params_shapes is not None else self.params_shapes()
+        return tree_pspecs(ps, self.rules, self.param_axes_fn)
+
+    def state_shapes(self) -> TrainState:
+        """The TrainState on the ``meta`` device."""
+        with on_meta():
+            params = self.init(torch.Generator())
+            return init_train_state(params, self.optimizer, self.tracked,
+                                    rng_key_data(1), "meta")
+
+    def state_pspecs(self, state_shapes=None) -> TrainState:
+        """The reference's ``state_pspecs``: params and optimizer state by
+        the params' logical axes, the touched masks of table paths over
+        ``embed_rows`` (the expert blocks' replicated), ``step`` and
+        ``rng`` replicated."""
+        st = state_shapes if state_shapes is not None else self.state_shapes()
+        params_p = tree_pspecs(st.params, self.rules, self.param_axes_fn)
+        opt_p = tree_pspecs(st.opt_state, self.rules, self.param_axes_fn)
+        touched_p = {}
+        for name, leaf in st.touched.items():
+            spec = self.tracked[name]
+            ax = ("embed_rows",) if spec.path[0] == "tables" else (None,)
+            touched_p[name] = self.rules.pspec(*ax, dims=tuple(leaf.shape))
+        return TrainState(step=P(), params=params_p, opt_state=opt_p,
+                          touched=touched_p, rng=P())
+
+
+def tree_pspecs(tree, rules: ShardingRules, axes_fn):
+    """A PartitionSpec at every leaf of ``tree``, from the leaf's path (as
+    ``jax.tree_util.keystr`` spells it) and shape."""
+    def leaf_spec(path, leaf):
+        dims = tuple(leaf.shape)
+        return rules.pspec(*axes_fn(keystr(path), dims), dims=dims)
+    return map_with_path(leaf_spec, tree)
+
+
+# =====================================================================
+# Recsys family
+# =====================================================================
+
+
+def recsys_param_axes(path: str, shape: Tuple[int, ...]):
+    nd = len(shape)
+    if "tables" in path or "emb_" in path or "lin_" in path or "item_" in path:
+        return ("embed_rows",) + (None,) * (nd - 1)
+    if "out_bias" in path:
+        return ("embed_rows",)[-nd:] if nd == 1 else (None,) * nd
+    return (None,) * nd
+
 
 _RECSYS_MODULES = {"dlrm-rm2": m_dlrm, "xdeepfm": m_xdeepfm, "mind": m_mind,
                    "bert4rec": m_bert4rec}
+
+
+def recsys_dense_flops(arch: str, cfg, batch: int) -> float:
+    """Analytic forward FLOPs of ``batch`` examples (matmul-dominated
+    terms), from the arch's own module."""
+    return _RECSYS_MODULES[arch].dense_flops(cfg, batch)
 
 
 def _recsys_inputs(arch: str, cfg, B: int, kind: str, reduced: bool):
@@ -103,16 +178,28 @@ def _retrieval_inputs(arch: str, cfg, C: int, reduced: bool):
     return dict(user, candidate_ids=InputSpec((C,), np.int32))
 
 
+def _recsys_pspecs(rules: ShardingRules, inputs, B: int, kind: str):
+    """The reference's input specs: a leading batch dim over ``batch``
+    (``neg_ids`` aside), the retrieval candidates over ``candidates``,
+    the rest replicated."""
+    def one(k, sh):
+        if kind == "retrieval" and k == "candidate_ids":
+            return rules.pspec("candidates", dims=sh)
+        if sh and sh[0] == B and k != "neg_ids":
+            return rules.pspec("batch", *([None] * (len(sh) - 1)), dims=sh)
+        return rules.pspec(*([None] * len(sh)), dims=sh)
+    return {k: one(k, tuple(v.shape)) for k, v in inputs.items()}
+
+
 def recsys_cell(arch: str, cfg, shape: str, reduced: bool = False,
-                device="cuda") -> CellBundle:
+                device="cuda", mesh=None) -> CellBundle:
     spec = (S.RECSYS_SHAPES_REDUCED if reduced else S.RECSYS_SHAPES)[shape]
     kind = spec["kind"]
     if arch not in _RECSYS_MODULES:
-        raise NotImplementedError(
-            f"({arch}, {shape}): {arch} is not one of the recsys archs "
-            f"{sorted(_RECSYS_MODULES)}; the MoE and MLA LMs come with ROADMAP "
-            f"A6.4, the 40-cell registry with A6.5")
+        raise ValueError(f"({arch}, {shape}): {arch} is not one of the recsys "
+                         f"archs {sorted(_RECSYS_MODULES)}")
     dev = resolve_device(device)
+    rules = recsys_rules(mesh)
     mod = _RECSYS_MODULES[arch]
     B = spec["batch"]
     tracked = mod.tracked_specs(cfg)
@@ -135,22 +222,29 @@ def recsys_cell(arch: str, cfg, shape: str, reduced: bool = False,
     inputs = (_retrieval_inputs(arch, cfg, spec["n_candidates"], reduced)
               if kind == "retrieval"
               else _recsys_inputs(arch, cfg, B, kind, reduced))
+    if kind == "train":
+        flops = 3.0 * mod.dense_flops(cfg, B)  # fwd+bwd ≈ 3× fwd
+    elif kind == "serve":
+        flops = mod.dense_flops(cfg, B)
+    else:
+        flops = mod.retrieval_flops(cfg, spec["n_candidates"])
 
     return CellBundle(
         arch=arch, shape=shape, kind=kind, cfg=cfg, device=dev,
         init=lambda gen: mod.init_params(gen, cfg),
         step_fn=step_fn, make_inputs=lambda: dict(inputs), tracked=tracked,
-        optimizer=optimizer)
+        optimizer=optimizer, model_flops=flops, param_axes_fn=recsys_param_axes,
+        rules=rules, input_pspecs=_recsys_pspecs(rules, inputs, B, kind))
 
 
 # =====================================================================
-# LM family (the dense archs)
+# LM family
 # =====================================================================
 
 
 def lm_param_axes(path: str, shape: Tuple[int, ...]):
     """Logical axes of an LM parameter, the reference's map (the MoE and
-    MLA leaves included): what the mesh slice will shard them over."""
+    MLA leaves included)."""
     nd = len(shape)
     if "tok_emb" in path:
         return ("embed_rows", None) if nd == 2 else ("embed_rows",)
@@ -182,36 +276,66 @@ def lm_param_axes(path: str, shape: Tuple[int, ...]):
     return (None,) * nd
 
 
+def _lm_cache_pspec(cfg: m_tf.TransformerConfig, rules: ShardingRules,
+                    batch: int, max_len: int):
+    """The decode cache's specs: the batch over ``batch``; MLA's latents
+    over ``model`` along the sequence where it divides; GQA/MHA's k and v
+    over ``model`` along the kv heads where they divide, else along the
+    sequence where it divides. None without a mesh."""
+    if rules.mesh is None:
+        return None
+    model_n = rules.mesh.shape.get("model", 1)
+    batch_ax = rules.pspec("batch", dims=(batch,))[0]
+    if cfg.mla:
+        seq_ax = "model" if max_len % model_n == 0 else None
+        return dict(ckv=P(None, batch_ax, seq_ax, None),
+                    kpe=P(None, batch_ax, seq_ax, None))
+    if cfg.n_kv_heads % model_n == 0:
+        return dict(k=P(None, batch_ax, None, "model", None),
+                    v=P(None, batch_ax, None, "model", None))
+    seq_ax = "model" if max_len % model_n == 0 else None
+    return dict(k=P(None, batch_ax, seq_ax, None, None),
+                v=P(None, batch_ax, seq_ax, None, None))
+
+
 def lm_cell(arch: str, cfg: m_tf.TransformerConfig, shape: str,
             reduced: bool = False, device="cuda",
-            global_batch: Optional[int] = None) -> CellBundle:
+            global_batch: Optional[int] = None, mesh=None) -> CellBundle:
     """An LM cell: ``train`` (autograd over the chunked cross-entropy, 4
     micro-batches at full shapes of global batch >= 64, as the reference's),
     ``prefill`` (last-position logits and the KV cache) or ``decode`` (one
     token against a cache made by ``init_cache``). ``global_batch``
     replaces the shape's batch (the card cannot hold every full batch);
-    the sequence length stays."""
+    the sequence length stays. Under a ``mesh`` the rules are the LM's
+    (pure FSDP for a config that asks for it, at full train shapes)."""
     spec = (S.LM_SHAPES_REDUCED if reduced else S.LM_SHAPES)[shape]
     kind = spec["kind"]
     dev = resolve_device(device)
+    rules = lm_rules(mesh, pure_fsdp=(cfg.pure_fsdp_train and kind == "train"
+                                      and not reduced))
     seq = spec["seq_len"]
     gb = spec["global_batch"] if global_batch is None else global_batch
     tracked = m_tf.tracked_specs(cfg)
     optimizer = split_optimizer(rowwise_adagrad(0.01), adagrad(0.01))
     tok = np.int32
+    tokens_p = rules.pspec("batch", None, dims=(gb, seq))
     if kind == "train":
         n_micro = 4 if (not reduced and gb >= 64) else 1
-        step_fn = make_train_step(lambda params, batch: m_tf.train_loss(params, batch, cfg),
-                                  optimizer, n_micro=n_micro)
+        step_fn = make_train_step(
+            lambda params, batch: m_tf.train_loss(params, batch, cfg, rules),
+            optimizer, n_micro=n_micro)
         inputs = dict(tokens=InputSpec((gb, seq), tok), labels=InputSpec((gb, seq), tok))
+        input_pspecs = dict(tokens=tokens_p, labels=tokens_p)
         flops = 6.0 * cfg.active_param_count * gb * seq
     elif kind == "prefill":
-        step_fn = lambda params, batch: m_tf.prefill_step(params, batch["tokens"], cfg)
+        step_fn = lambda params, batch: m_tf.prefill_step(params, batch["tokens"], cfg,
+                                                          rules=rules)
         inputs = dict(tokens=InputSpec((gb, seq), tok))
+        input_pspecs = dict(tokens=tokens_p)
         flops = 2.0 * cfg.active_param_count * gb * seq
     elif kind == "decode":
         step_fn = lambda params, batch: m_tf.decode_step(
-            params, batch["tokens"], batch["cache"], batch["cache_len"], cfg)
+            params, batch["tokens"], batch["cache"], batch["cache_len"], cfg, rules)
         L = cfg.n_layers
         if cfg.mla:  # the latent cache
             cache = dict(ckv=InputSpec((L, gb, seq, cfg.mla.kv_lora_rank), torch.bfloat16),
@@ -223,6 +347,8 @@ def lm_cell(arch: str, cfg: m_tf.TransformerConfig, shape: str,
             attn = 4.0 * gb * cfg.n_heads * seq * cfg.head_dim
         inputs = dict(tokens=InputSpec((gb, 1), tok), cache=cache,
                       cache_len=InputSpec((), np.int32))
+        input_pspecs = dict(tokens=rules.pspec("batch", None, dims=(gb, 1)),
+                            cache=_lm_cache_pspec(cfg, rules, gb, seq), cache_len=P())
         flops = 2.0 * cfg.active_param_count * gb + cfg.n_layers * attn
     else:
         raise ValueError(kind)
@@ -230,7 +356,8 @@ def lm_cell(arch: str, cfg: m_tf.TransformerConfig, shape: str,
         arch=arch, shape=shape, kind=kind, cfg=cfg, device=dev,
         init=lambda gen: m_tf.init_params(gen, cfg), step_fn=step_fn,
         make_inputs=lambda: dict(inputs), tracked=tracked, optimizer=optimizer,
-        model_flops=flops, param_axes_fn=lm_param_axes)
+        model_flops=flops, param_axes_fn=lm_param_axes, rules=rules,
+        input_pspecs=input_pspecs)
 
 
 # =====================================================================
@@ -258,7 +385,7 @@ def dimenet_flops(cfg: m_dimenet.DimeNetConfig, n_nodes, n_edges, n_tri,
 
 
 def gnn_cell(arch: str, base_cfg: m_dimenet.DimeNetConfig, shape: str,
-             reduced: bool = False, device="cuda") -> CellBundle:
+             reduced: bool = False, device="cuda", mesh=None) -> CellBundle:
     """A dimenet train cell: ``molecule`` (a batch of small molecules, the
     species table tracked) or a flat graph (nodes with features, node
     classification, nothing tracked). Full flat shapes pad node and edge
@@ -266,6 +393,7 @@ def gnn_cell(arch: str, base_cfg: m_dimenet.DimeNetConfig, shape: str,
     pad rows are inert."""
     spec = (S.GNN_SHAPES_REDUCED if reduced else S.GNN_SHAPES)[shape]
     dev = resolve_device(device)
+    rules = gnn_rules(mesh)
     tpe = spec["triplets_per_edge"]
     i32, f32 = np.int32, np.float32
     if shape == "molecule":
@@ -276,6 +404,9 @@ def gnn_cell(arch: str, base_cfg: m_dimenet.DimeNetConfig, shape: str,
                       edge_src=InputSpec((B, E), i32), edge_dst=InputSpec((B, E), i32),
                       tri_kj=InputSpec((B, T), i32), tri_ji=InputSpec((B, T), i32),
                       energy=InputSpec((B,), f32))
+        input_pspecs = {k: rules.pspec("batch", *([None] * (len(v.shape) - 1)),
+                                       dims=(B,) + (1,) * (len(v.shape) - 1))
+                        for k, v in inputs.items()}
         flops = 3.0 * dimenet_flops(cfg, N, E, T, batch=B)
     else:
         if shape == "minibatch_lg":
@@ -297,6 +428,15 @@ def gnn_cell(arch: str, base_cfg: m_dimenet.DimeNetConfig, shape: str,
                       labels=InputSpec((n_seeds,), i32))
         if n_seeds != N:
             inputs["seed_idx"] = InputSpec((n_seeds,), i32)
+        input_pspecs = dict(
+            features=rules.pspec("nodes", None, dims=(N, spec["d_feat"])),
+            edge_src=rules.pspec("edges", dims=(E,)),
+            edge_dst=rules.pspec("edges", dims=(E,)),
+            tri_kj=rules.pspec("triplets", dims=(T,)),
+            tri_ji=rules.pspec("triplets", dims=(T,)),
+            labels=rules.pspec(None, dims=(n_seeds,)))
+        if n_seeds != N:
+            input_pspecs["seed_idx"] = rules.pspec(None, dims=(n_seeds,))
         flops = 3.0 * dimenet_flops(cfg, N, E, T)
     tracked = m_dimenet.tracked_specs(cfg)
     optimizer = split_optimizer(rowwise_adagrad(0.01), adagrad(0.01))
@@ -306,4 +446,5 @@ def gnn_cell(arch: str, base_cfg: m_dimenet.DimeNetConfig, shape: str,
         arch=arch, shape=shape, kind="train", cfg=cfg, device=dev,
         init=lambda gen: m_dimenet.init_params(gen, cfg), step_fn=step_fn,
         make_inputs=lambda: dict(inputs), tracked=tracked, optimizer=optimizer,
-        model_flops=flops, param_axes_fn=gnn_param_axes)
+        model_flops=flops, param_axes_fn=gnn_param_axes, rules=rules,
+        input_pspecs=input_pspecs)

@@ -23,9 +23,10 @@ def make_config(reduced: bool = False) -> TransformerConfig:
 
 
 def make_cell(shape: str, reduced: bool = False, device="cuda",
-              vocab_cap: Optional[int] = None, global_batch: Optional[int] = None):
+              vocab_cap: Optional[int] = None, global_batch: Optional[int] = None,
+              mesh=None):
     if vocab_cap is not None:
         raise ValueError("dbrx-132b takes no vocab cap: its tok_emb "
                          "(100,352 x 6,144, 2.47 GB f32) fits the card whole")
     return lm_cell("dbrx-132b", make_config(reduced), shape, reduced, device,
-                   global_batch)
+                   global_batch, mesh=mesh)

@@ -19,8 +19,9 @@ def make_config(reduced: bool = False) -> DimeNetConfig:
 
 
 def make_cell(shape: str, reduced: bool = False, device="cuda",
-              vocab_cap: Optional[int] = None):
+              vocab_cap: Optional[int] = None, mesh=None):
     if vocab_cap is not None:
         raise ValueError("dimenet takes no vocab cap: its one table is the "
                          "95-row species embedding")
-    return gnn_cell("dimenet", make_config(reduced), shape, reduced, device)
+    return gnn_cell("dimenet", make_config(reduced), shape, reduced, device,
+                    mesh=mesh)

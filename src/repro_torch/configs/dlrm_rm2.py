@@ -38,6 +38,6 @@ def make_config(reduced: bool = False,
 
 
 def make_cell(shape: str, reduced: bool = False, device="cuda",
-              vocab_cap: Optional[int] = None):
+              vocab_cap: Optional[int] = None, mesh=None):
     return recsys_cell("dlrm-rm2", make_config(reduced, vocab_cap), shape,
-                       reduced, device)
+                       reduced, device, mesh=mesh)

@@ -27,9 +27,10 @@ def make_config(reduced: bool = False) -> TransformerConfig:
 
 
 def make_cell(shape: str, reduced: bool = False, device="cuda",
-              vocab_cap: Optional[int] = None, global_batch: Optional[int] = None):
+              vocab_cap: Optional[int] = None, global_batch: Optional[int] = None,
+              mesh=None):
     if vocab_cap is not None:
         raise ValueError("minicpm3-4b takes no vocab cap: its tok_emb "
                          "(73,472 x 2,560, 752 MB f32) fits the card whole")
     return lm_cell("minicpm3-4b", make_config(reduced), shape, reduced, device,
-                   global_batch)
+                   global_batch, mesh=mesh)

@@ -22,8 +22,9 @@ def make_config(reduced: bool = False) -> TransformerConfig:
 
 
 def make_cell(shape: str, reduced: bool = False, device="cuda",
-              vocab_cap: Optional[int] = None, global_batch: Optional[int] = None):
+              vocab_cap: Optional[int] = None, global_batch: Optional[int] = None,
+              mesh=None):
     if vocab_cap is not None:
         raise ValueError("nemotron-4-15b takes no vocab cap")
     return lm_cell("nemotron-4-15b", make_config(reduced), shape, reduced, device,
-                   global_batch)
+                   global_batch, mesh=mesh)

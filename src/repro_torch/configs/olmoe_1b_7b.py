@@ -23,9 +23,10 @@ def make_config(reduced: bool = False) -> TransformerConfig:
 
 
 def make_cell(shape: str, reduced: bool = False, device="cuda",
-              vocab_cap: Optional[int] = None, global_batch: Optional[int] = None):
+              vocab_cap: Optional[int] = None, global_batch: Optional[int] = None,
+              mesh=None):
     if vocab_cap is not None:
         raise ValueError("olmoe-1b-7b takes no vocab cap: its tok_emb "
                          "(50,304 x 2,048, 412 MB f32) fits the card whole")
     return lm_cell("olmoe-1b-7b", make_config(reduced), shape, reduced, device,
-                   global_batch)
+                   global_batch, mesh=mesh)

@@ -22,9 +22,10 @@ def make_config(reduced: bool = False) -> TransformerConfig:
 
 
 def make_cell(shape: str, reduced: bool = False, device="cuda",
-              vocab_cap: Optional[int] = None, global_batch: Optional[int] = None):
+              vocab_cap: Optional[int] = None, global_batch: Optional[int] = None,
+              mesh=None):
     if vocab_cap is not None:
         raise ValueError("qwen2-0.5b takes no vocab cap: its tok_emb "
                          "(151,936 x 896, 544.5 MB f32) fits the card whole")
     return lm_cell("qwen2-0.5b", make_config(reduced), shape, reduced, device,
-                   global_batch)
+                   global_batch, mesh=mesh)

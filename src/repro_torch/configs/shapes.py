@@ -1,8 +1,8 @@
 """Assigned input-shape sets, one per architecture family: the recsys
 family's four shapes (xdeepfm, dlrm-rm2, mind, bert4rec), the gnn family's
-(dimenet) and the LM family's (qwen2-0.5b, nemotron-4-15b), with
-``block_shape`` for the sampled ``minibatch_lg`` block. The reference's
-``FAMILY_SHAPES`` map comes with the 40-cell registry (ROADMAP A6.5)."""
+(dimenet) and the LM family's (the five LMs), with ``block_shape`` for the
+sampled ``minibatch_lg`` block, and ``FAMILY_SHAPES`` (and its reduced
+twin), the family → shape-set map the 40-cell registry walks."""
 
 from __future__ import annotations
 
@@ -47,6 +47,9 @@ def block_shape(spec: dict) -> Tuple[int, int]:
     return nodes, edges
 
 
+FAMILY_SHAPES = dict(lm=LM_SHAPES, recsys=RECSYS_SHAPES, gnn=GNN_SHAPES)
+
+
 # Reduced shape sets for CPU tests (same code paths, tiny extents).
 LM_SHAPES_REDUCED: Dict[str, dict] = {
     "train_4k": dict(kind="train", seq_len=64, global_batch=4),
@@ -73,3 +76,6 @@ GNN_SHAPES_REDUCED: Dict[str, dict] = {
     "molecule": dict(kind="train", n_nodes=12, n_edges=24, batch=4,
                      triplets_per_edge=4),
 }
+
+FAMILY_SHAPES_REDUCED = dict(lm=LM_SHAPES_REDUCED, recsys=RECSYS_SHAPES_REDUCED,
+                             gnn=GNN_SHAPES_REDUCED)

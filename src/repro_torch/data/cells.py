@@ -9,6 +9,7 @@ ones), since ``decode_32k``'s is 51.5 GB."""
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import numpy as np
@@ -43,6 +44,14 @@ def build_triplets(src: np.ndarray, dst: np.ndarray, cap: int,
         kj.append(len(kj) % E)
         ji.append(len(ji) % E)
     return (np.asarray(kj[:total], np.int32), np.asarray(ji[:total], np.int32))
+
+
+@functools.lru_cache(maxsize=1)
+def _node_features(cfg: syn.HashGraphConfig) -> np.ndarray:
+    """Every node's features of a graph cell: the same in each of its
+    batches and ~6 s of the host at minibatch_lg's 169,984 x 602, so made
+    once a graph (callers take a copy)."""
+    return syn.HashGraph(cfg).features(np.arange(cfg.n_nodes, dtype=np.int64))
 
 
 def _lm_batch(bundle: CellBundle, specs, batch_idx: int, seed: int, rng):
@@ -90,7 +99,7 @@ def _dimenet_batch(bundle: CellBundle, specs, batch_idx: int, seed: int, rng):
     graph = syn.HashGraph(syn.HashGraphConfig(n_nodes=N, avg_degree=max(E // N, 1),
                                               d_feat=d_feat, seed=seed))
     nodes = np.arange(N, dtype=np.int64)
-    out = dict(features=graph.features(nodes), edge_src=src, edge_dst=dst,
+    out = dict(features=_node_features(graph.cfg).copy(), edge_src=src, edge_dst=dst,
                tri_kj=kj, tri_ji=ji,
                labels=(graph.labels(nodes[:n_seeds]) % cfg.n_out).astype(np.int32))
     if "seed_idx" in specs:

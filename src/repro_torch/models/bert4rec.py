@@ -73,6 +73,20 @@ def tracked_specs(cfg: Bert4RecConfig) -> Dict[str, TrackedSpec]:
     return table_specs((cfg.n_items,), cfg.embed_dim, prefix="item")
 
 
+def dense_flops(cfg: Bert4RecConfig, batch: int) -> float:
+    """Analytic forward FLOPs of ``batch`` sequences through the encoder's
+    blocks (projections, attention, FFN)."""
+    Sq, D = cfg.seq_len, cfg.embed_dim
+    per_block = 8 * D * D * Sq + 4 * Sq * Sq * D + 4 * D * cfg.d_ff * Sq
+    return float(cfg.n_blocks * per_block) * batch
+
+
+def retrieval_flops(cfg: Bert4RecConfig, n_candidates: int) -> float:
+    """A retrieval request's FLOPs: the user's sequence once, then one dot
+    product a candidate."""
+    return dense_flops(cfg, 1) + 2.0 * n_candidates * cfg.embed_dim
+
+
 def _project(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,dhk->bshk")`` as one (B*S, d) x (d, H*Dh) product:
     the result is contiguous, unit stride along the head dim."""

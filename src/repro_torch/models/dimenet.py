@@ -31,8 +31,8 @@ Numerics, held to the reference's on the CPU:
     and triplets offset into it; each molecule's sums keep their own order.
 
 The reference's ``forward_flat_sharded`` (a ``shard_map`` over node and edge
-partitions) is mesh machinery and comes with the mesh slice (ROADMAP A6.5);
-without a mesh the reference takes ``forward_flat``, as the port does.
+partitions, over a group here) comes with ROADMAP A6.5b; without a mesh the
+reference takes ``forward_flat``, as the port does.
 """
 
 from __future__ import annotations

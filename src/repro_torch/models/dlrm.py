@@ -68,6 +68,23 @@ def tracked_specs(cfg: DLRMConfig) -> Dict[str, TrackedSpec]:
     return table_specs(cfg.vocab_sizes, cfg.embed_dim)
 
 
+def dense_flops(cfg: DLRMConfig, batch: int) -> float:
+    """Analytic forward FLOPs of ``batch`` examples: the two MLPs' products
+    and the dot interaction (the matmul-dominated terms)."""
+    dims = (cfg.n_dense,) + cfg.bot_mlp
+    f = sum(2 * a * b for a, b in zip(dims[:-1], dims[1:]))
+    Ft = cfg.n_sparse + 1
+    f += 2 * Ft * Ft * cfg.embed_dim  # dot interaction
+    dims = (cfg.embed_dim + cfg.n_interact,) + cfg.top_mlp
+    f += sum(2 * a * b for a, b in zip(dims[:-1], dims[1:]))
+    return float(f) * batch
+
+
+def retrieval_flops(cfg: DLRMConfig, n_candidates: int) -> float:
+    """A retrieval request's FLOPs: the whole forward a candidate."""
+    return dense_flops(cfg, n_candidates)
+
+
 def dot_interaction(feats: torch.Tensor) -> torch.Tensor:
     """feats (B, F, D) → pairwise dots ⟨f_i, f_j⟩ for i < j, in
     ``np.triu_indices`` order: (B, F(F-1)/2)."""

@@ -3,10 +3,9 @@
 with the tanh-approximated GELU), RoPE, ``chunked_attention``, the
 online-softmax attention the transformer models train through,
 ``decode_attention`` against a KV cache, the mixture-of-experts FFN
-(``moe_ffn``: a top-k router and a sorted grouped product) and Multi-head
-Latent Attention (``mla_attention``: a latent KV cache, absorbed decode).
-The reference's expert-parallel dispatch (``_moe_ep_cell`` under
-``shard_map``) is mesh machinery and comes with ROADMAP A6.5."""
+(``moe_ffn``: a top-k router, then a sorted grouped product, or across the
+ranks of a mesh the expert-parallel dispatch) and Multi-head Latent
+Attention (``mla_attention``: a latent KV cache, absorbed decode)."""
 
 from __future__ import annotations
 
@@ -17,6 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from ..dist.sharding import NO_SHARDING, ShardingRules
 
 NEG_INF = float(np.finfo(np.float32).min)
 
@@ -180,8 +181,8 @@ class MoEConfig:
     top_k: int
     d_ff: int
     gated: bool = True  # SwiGLU experts
-    capacity_factor: float = 2.0  # expert-parallel dispatch buffer (A6.5)
-    dispatch: str = "auto"        # auto | dense | ep (expert-parallel: A6.5)
+    capacity_factor: float = 2.0  # expert-parallel dispatch buffer (φ)
+    dispatch: str = "auto"        # auto | dense | ep (expert-parallel over a mesh)
 
 
 def moe_params_init(gen: torch.Generator, d_model: int,
@@ -261,26 +262,182 @@ def _moe_aux_loss(probs, ids, n_experts):
     return n_experts * torch.sum(me * ce)
 
 
+def _moe_ep_cell(x_l, router, w_up, w_gate, w_down, *, cfg: MoEConfig, act,
+                 compute_dtype, j: int):
+    """The reference's per-(data, model)-cell expert-parallel MoE on this
+    rank's tokens ``x_l`` (n_l, d) and its ``model`` index ``j``'s experts
+    (``w_up`` and ``w_gate`` (E_l, d, F), ``w_down`` (E_l, F, d)):
+    route every token, then for each local expert gather up to capacity C
+    of the tokens routed to it, first come in token order, run plain
+    products in ``compute_dtype``, and add the gated outputs back. Tokens
+    past C are dropped (GShard-style capacity φ = cfg.capacity_factor).
+    → (this rank's partial output (n_l, d) f32, touched (E,) f32 of its
+    tokens, its aux loss), before any reduction."""
+    n_l, d = x_l.shape
+    e_local = w_up.shape[0]
+    probs, weights, ids = _moe_router(x_l, router, cfg.top_k)
+    cap = max(int(cfg.capacity_factor * n_l * cfg.top_k / cfg.n_experts), 8)
+    cap = min(cap, n_l)
+    out = x_l.new_zeros((n_l, d), dtype=torch.float32)
+    with torch.no_grad():
+        touched = torch.zeros((cfg.n_experts,), dtype=torch.float32, device=x_l.device)
+        touched[ids.reshape(-1)] = 1.0
+
+    cd = compute_dtype
+    xc = x_l.to(cd)
+    order = torch.arange(n_l, device=x_l.device)
+    for el in range(e_local):
+        mask = ids == j * e_local + el
+        gate = torch.sum(weights * mask, dim=-1)          # (n_l,)
+        sel = torch.any(mask, dim=-1)
+        # deterministic first-come capacity: tokens in sequence order
+        prio = torch.where(sel, order, n_l + order)
+        idx = torch.argsort(prio)[:cap]
+        valid = sel[idx]
+        xs = xc[idx]                                      # (C, d)
+        h = xs @ w_up[el].to(cd)
+        if w_gate is not None:
+            h = act(xs @ w_gate[el].to(cd)).to(cd) * h
+        else:
+            h = act(h).to(cd)
+        ys = (h @ w_down[el].to(cd)).to(torch.float32)
+        scale = (gate[idx] * valid)[:, None]
+        out = out.index_add(0, idx, ys * scale)
+    return out, touched, _moe_aux_loss(probs, ids, cfg.n_experts)
+
+
+class _GatherD(torch.autograd.Function):
+    """``w`` all-gathered over ``group`` along ``axis`` (tiled, ranks in
+    order). The backward sums the cotangent over the group and keeps this
+    rank's slice: a reduce-scatter through an all-reduce, which gloo runs
+    on a subgroup too."""
+
+    @staticmethod
+    def forward(ctx, w, axis, group):
+        import torch.distributed as dist
+
+        ctx.axis, ctx.group = axis, group
+        ctx.rank, ctx.size = dist.get_rank(group), w.shape[axis]
+        parts = [torch.empty_like(w) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, w.contiguous(), group=group)
+        return torch.cat(parts, dim=axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g.narrow(ctx.axis, ctx.rank * ctx.size, ctx.size), None, None
+
+
+def _gather_d(w: torch.Tensor, axis: int, group, compute_dtype) -> torch.Tensor:
+    """``w``'s d_model shard all-gathered over ``group`` along ``axis``,
+    cast to ``compute_dtype`` before the gather: the gathered copy is
+    transient compute input, so it travels at the compute width."""
+    return _GatherD.apply(w.to(compute_dtype), axis, group)
+
+
+def _moe_ep(x, params, cfg: MoEConfig, act, compute_dtype, rules: ShardingRules):
+    """Expert parallelism across the ranks of ``rules.mesh``. ``x`` is this
+    rank's shard of the tokens along the rules' batch axes; activations
+    are the same on every ``model`` rank of one batch shard, so no token
+    moves between ranks: the rank of ``model`` index j owns experts
+    j·E_l … (j+1)·E_l − 1 (E_l = E / model), runs them on its tokens
+    (``_moe_ep_cell``), and the partial outputs are summed over the
+    ``model`` subgroup; the touched masks are summed, and the aux losses
+    averaged, over ``model`` and the batch axes. ``params`` hold the
+    router whole and this rank's E_l experts, as the reference's
+    ``shard_map`` cell receives them; under rules that shard ``d_model``
+    (pure FSDP) they hold this rank's d_model shard of those experts,
+    gathered in ``compute_dtype`` before use.
+
+    Gradients. The sums are differentiable: the backward of each is the
+    same sum of the cotangents. The loss meant is the mean of the ranks'
+    losses (a rank's loss is its batch shard's mean plus the aux term, so
+    the ``model`` ranks of a shard compute equal ones). Its gradient with
+    respect to a parameter is the sum of that parameter's gradient over
+    the ranks that hold a copy of it, divided by the world size: for a
+    parameter every rank holds (the router, everything outside the MoE)
+    the mean over all ranks; for expert j's weights the sum over the
+    batch axes' ranks of ``model`` index j, over the world size."""
+    import torch.distributed as dist
+    from torch.distributed.nn.functional import all_reduce
+
+    mesh = rules.mesh
+    if mesh is None or not getattr(mesh, "has_group", False):
+        raise ValueError(
+            "expert-parallel MoE dispatch ('ep') runs across the ranks of a mesh "
+            "that carries a torch.distributed group (launch.mesh.make_host_mesh); "
+            f"these rules' mesh is {mesh!r}. Use dispatch 'dense' on one process")
+    if "model" not in mesh.shape:
+        raise ValueError(f"expert-parallel MoE needs a 'model' axis; mesh {mesh!r}")
+    model_n = mesh.shape["model"]
+    E = cfg.n_experts
+    if E % model_n:
+        raise ValueError(f"{E} experts do not split over model = {model_n}")
+    e_local = E // model_n
+    j = mesh.axis_index("model")
+    B, S, d = x.shape
+
+    for name in ("w_up", "w_gate", "w_down") if cfg.gated else ("w_up", "w_down"):
+        if params[name].shape[0] != e_local:
+            raise ValueError(f"{name} holds {params[name].shape[0]} experts: this rank "
+                             f"owns {e_local} of {E} (model index {j})")
+    w_up, w_down, w_gate = params["w_up"], params["w_down"], params.get("w_gate")
+    fsdp_axes = rules.axes_for("d_model", d) or ()
+    if fsdp_axes:
+        g = mesh.group_for(fsdp_axes)
+        w_up = _gather_d(w_up, 1, g, compute_dtype)
+        w_down = _gather_d(w_down, 2, g, compute_dtype)
+        if w_gate is not None:
+            w_gate = _gather_d(w_gate, 1, g, compute_dtype)
+
+    out, touched, aux = _moe_ep_cell(x.reshape(-1, d), params["router"], w_up, w_gate,
+                                     w_down, cfg=cfg, act=act,
+                                     compute_dtype=compute_dtype, j=j)
+    batch_axes = tuple(a for a in (rules.axes_for("batch") or ()) if a != "model")
+    reduce_group = mesh.group_for(("model",) + batch_axes)
+    out = all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.group_for(("model",)))
+    dist.all_reduce(touched, op=dist.ReduceOp.SUM, group=reduce_group)
+    aux = all_reduce(aux, op=dist.ReduceOp.SUM, group=reduce_group)
+    aux = aux / dist.get_world_size(reduce_group)
+    return out.reshape(B, S, d).to(x.dtype), touched > 0, aux
+
+
 def moe_ffn(x, params, cfg: MoEConfig, *, act: Callable = F.silu,
-            compute_dtype=torch.bfloat16):
+            compute_dtype=torch.bfloat16, rules: ShardingRules = NO_SHARDING):
     """Mixture-of-experts FFN → (output, expert-touched mask (E,), aux loss).
 
-    The reference's ``dense`` dispatch, the one it takes without a mesh
-    (``"auto"`` resolves to it): router logits and softmax in f32, top-k,
-    the weights renormalized; the three grouped products with operands in
-    ``compute_dtype`` and f32 results; ``act(gate) * up`` in f32, cast to
-    ``compute_dtype`` before the down product; the combine in f32, the
-    output cast to ``x``'s dtype. The touched mask feeds Check-N-Run's
-    tracker: with top-k routing only the routed experts change in an
-    interval, so expert blocks checkpoint incrementally like embedding
-    rows."""
+    Two dispatch paths, as the reference's:
+      * ``dense`` — the only one without a mesh: router logits and softmax
+        in f32, top-k, the weights renormalized; the three grouped
+        products with operands in ``compute_dtype`` and f32 results;
+        ``act(gate) * up`` in f32, cast to ``compute_dtype`` before the
+        down product; the combine in f32, the output cast to ``x``'s dtype.
+        Exact, no drops.
+      * ``ep`` — expert parallelism across the ranks of ``rules.mesh``
+        (``_moe_ep``): capacity-bounded local dispatch, no token exchange,
+        a sum over the ``model`` ranks. It needs a mesh that carries a
+        process group and raises without one; it never falls back to
+        ``dense``.
+    ``auto`` takes ``ep`` under a mesh whose ``model`` axis is wider than 1
+    and divides the experts, ``dense`` otherwise.
+
+    The touched mask feeds Check-N-Run's tracker: with top-k routing only
+    the routed experts change in an interval, so expert blocks checkpoint
+    incrementally like embedding rows."""
     B, S, d = x.shape
-    if cfg.dispatch == "ep":
-        raise NotImplementedError(
-            "expert-parallel MoE dispatch needs a mesh: it comes with the mesh "
-            "slice (ROADMAP A6.5); use dispatch 'auto' or 'dense'")
-    if cfg.dispatch not in ("auto", "dense"):
-        raise ValueError(f"unknown MoE dispatch {cfg.dispatch!r}")
+    dispatch = cfg.dispatch
+    if dispatch not in ("auto", "dense", "ep"):
+        raise ValueError(f"unknown MoE dispatch {dispatch!r}")
+    mesh = rules.mesh
+    model_n = mesh.shape.get("model", 1) if mesh is not None else 1
+    if dispatch == "auto":
+        dispatch = ("ep" if mesh is not None and model_n > 1
+                    and cfg.n_experts % model_n == 0 else "dense")
+    if dispatch == "ep":
+        return _moe_ep(x, params, cfg, act, compute_dtype, rules)
     xf = x.reshape(-1, d)
     probs, weights, ids = _moe_router(xf, params["router"], cfg.top_k)
     out = _moe_local(xf, ids, weights, params["w_up"], params.get("w_gate"),

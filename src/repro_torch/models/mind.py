@@ -51,6 +51,20 @@ def tracked_specs(cfg: MINDConfig) -> Dict[str, TrackedSpec]:
     return table_specs((cfg.n_items,), cfg.embed_dim, prefix="item")
 
 
+def dense_flops(cfg: MINDConfig, batch: int) -> float:
+    """Analytic forward FLOPs of ``batch`` examples: the history's
+    projection and the capsule routing iterations."""
+    T, D, K = cfg.hist_len, cfg.embed_dim, cfg.n_interests
+    f = 2 * T * D * D + cfg.capsule_iters * (3 * 2 * T * K * D)
+    return float(f) * batch
+
+
+def retrieval_flops(cfg: MINDConfig, n_candidates: int) -> float:
+    """A retrieval request's FLOPs: the user's interests once, then each
+    candidate against each interest."""
+    return dense_flops(cfg, 1) + 2.0 * n_candidates * cfg.embed_dim * cfg.n_interests
+
+
 def squash(s: torch.Tensor) -> torch.Tensor:
     n2 = torch.sum(torch.square(s), dim=-1, keepdim=True)
     return (n2 / (1.0 + n2)) * s / torch.sqrt(n2 + 1e-9)

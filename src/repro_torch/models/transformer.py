@@ -36,6 +36,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..dist.sharding import NO_SHARDING, ShardingRules
 from ..kernels.flash_attention import flash_attention
 from ..train.state import TrackedSpec
 from .embedding import take
@@ -62,6 +63,7 @@ class TransformerConfig:
     compute_dtype: torch.dtype = torch.bfloat16
     remat: bool = True
     aux_loss_coef: float = 0.01
+    pure_fsdp_train: bool = False  # the cell's train rules shard only d_model
 
     @property
     def param_count(self) -> int:
@@ -228,7 +230,7 @@ def _ffn(x, p, cfg: TransformerConfig):
 
 
 def _layer(x, lp, cfg: TransformerConfig, positions, attention, cache=None,
-           cache_len=None):
+           cache_len=None, rules: ShardingRules = NO_SHARDING):
     """One transformer block → (x, new_cache, expert-touched (E,) or None,
     aux loss)."""
     h = rmsnorm(x, lp["ln1"])
@@ -243,7 +245,7 @@ def _layer(x, lp, cfg: TransformerConfig, positions, attention, cache=None,
     h = rmsnorm(x, lp["ln2"])
     if cfg.moe:
         f, touched, aux = moe_ffn(h, lp["moe"], cfg.moe, act=act_fn(cfg.act),
-                                  compute_dtype=cfg.compute_dtype)
+                                  compute_dtype=cfg.compute_dtype, rules=rules)
     else:
         f, touched, aux = _ffn(h, lp["ffn"], cfg), None, None
     return x + f, new_cache, touched, aux
@@ -255,11 +257,16 @@ def layer_params(blocks, l: int):
             for k, v in blocks.items()}
 
 
-def forward(params, tokens, cfg: TransformerConfig, caches=None, cache_len=None,
+def forward(params, tokens, cfg: TransformerConfig,
+            rules: ShardingRules = NO_SHARDING, caches=None, cache_len=None,
             collect_cache: bool = False, attention: Callable = chunked_attention):
     """Full forward. tokens (B, S) → (hidden (B, S, d), caches,
     expert-touched (L, E) or None, aux loss summed over the layers (f32 0
     without MoE)).
+
+    ``rules`` reach the MoE layers (``moe_ffn``): under a mesh that carries
+    a process group, ``tokens`` are this rank's shard of the batch, and the
+    expert-parallel dispatch combines over the mesh's ranks.
 
     ``caches`` (``init_cache``'s dict) turns it into decode: each layer
     writes its new keys and values (MLA: latents) at ``cache_len`` in place
@@ -278,9 +285,10 @@ def forward(params, tokens, cfg: TransformerConfig, caches=None, cache_len=None,
         cache_l = None if caches is None else {k: c[l] for k, c in caches.items()}
         if remat:
             x, new_cache, t_l, a_l = checkpoint(_layer, x, lp, cfg, positions, attention,
-                                                use_reentrant=False)
+                                                rules=rules, use_reentrant=False)
         else:
-            x, new_cache, t_l, a_l = _layer(x, lp, cfg, positions, attention, cache_l, base)
+            x, new_cache, t_l, a_l = _layer(x, lp, cfg, positions, attention, cache_l, base,
+                                            rules=rules)
         if collect_cache:
             for k, c in new_cache.items():
                 collected.setdefault(k, []).append(c)
@@ -331,13 +339,14 @@ def _ce_chunked(params, hidden, labels, cfg: TransformerConfig, s_chunk: int = 5
     return total / (B * S)
 
 
-def train_loss(params, batch, cfg: TransformerConfig):
+def train_loss(params, batch, cfg: TransformerConfig,
+               rules: ShardingRules = NO_SHARDING):
     """Causal-LM cross-entropy plus ``aux_loss_coef`` times the MoE layers'
     load-balancing loss. Returns (loss, aux) with the touched masks:
     ``tok_emb``'s rows and, with MoE, the (layer, expert) units of the
     three expert blocks."""
     tokens, labels = batch["tokens"], batch["labels"]
-    hidden, _, touched_moe, aux_loss = forward(params, tokens, cfg)
+    hidden, _, touched_moe, aux_loss = forward(params, tokens, cfg, rules)
     ce = _ce_chunked(params, hidden, labels, cfg)
     loss = ce + cfg.aux_loss_coef * aux_loss
     with torch.no_grad():
@@ -373,16 +382,18 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
                 v=torch.zeros(shape, dtype=dtype, device=device))
 
 
-def decode_step(params, tokens, caches, cache_len, cfg: TransformerConfig):
+def decode_step(params, tokens, caches, cache_len, cfg: TransformerConfig,
+                rules: ShardingRules = NO_SHARDING):
     """One decode step: tokens (B, T_new) and caches (written in place at
     ``cache_len``) → (logits (B, T_new, V), the caches). Without gradients."""
     with torch.no_grad():
-        hidden, caches, _, _ = forward(params, tokens, cfg, caches=caches,
+        hidden, caches, _, _ = forward(params, tokens, cfg, rules, caches=caches,
                                        cache_len=int(cache_len))
         return logits_fn(params, hidden, cfg), caches
 
 
 def prefill_step(params, tokens, cfg: TransformerConfig,
+                 rules: ShardingRules = NO_SHARDING,
                  attention: Callable = flash_attention):
     """Prefill: the full forward → (last-position logits (B, 1, V), the KV
     cache stacked (L, B, S, Hkv, D), or with MLA the latents (L, B, S, r)).
@@ -390,6 +401,6 @@ def prefill_step(params, tokens, cfg: TransformerConfig,
     ``flash_attention`` kernel on a card by default, ``chunked_attention``
     as its plain version. Without gradients."""
     with torch.no_grad():
-        hidden, caches, _, _ = forward(params, tokens, cfg, collect_cache=True,
+        hidden, caches, _, _ = forward(params, tokens, cfg, rules, collect_cache=True,
                                        attention=attention)
         return logits_fn(params, hidden[:, -1:, :], cfg), caches

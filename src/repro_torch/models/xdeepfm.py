@@ -84,6 +84,26 @@ def tracked_specs(cfg: XDeepFMConfig) -> Dict[str, TrackedSpec]:
     return specs
 
 
+def dense_flops(cfg: XDeepFMConfig, batch: int) -> float:
+    """Analytic forward FLOPs of ``batch`` examples: the CIN's outer
+    products and compressions, and the MLP."""
+    F, D = cfg.n_sparse, cfg.embed_dim
+    f = 0.0
+    h_prev = F
+    for h in cfg.cin_layers:
+        f += 2 * h_prev * F * D          # outer product
+        f += 2 * h * h_prev * F * D      # compression
+        h_prev = h
+    dims = (F * D,) + cfg.mlp + (1,)
+    f += sum(2 * a * b for a, b in zip(dims[:-1], dims[1:]))
+    return float(f) * batch
+
+
+def retrieval_flops(cfg: XDeepFMConfig, n_candidates: int) -> float:
+    """A retrieval request's FLOPs: the whole forward a candidate."""
+    return dense_flops(cfg, n_candidates)
+
+
 def cin(x0: torch.Tensor, weights, compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Compressed Interaction Network. x0 (B, F, D) → (B, sum(H_k)).
 

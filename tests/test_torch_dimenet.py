@@ -209,6 +209,19 @@ def test_build_triplets_identical(shape):
             assert x.dtype == y.dtype == np.int32
 
 
+def test_graph_features_made_once_and_copied():
+    """A graph cell's node features, the same in each of its batches, are
+    made once; each batch holds its own copy, so writing one batch's leaves
+    the next equal to the reference's."""
+    bundle = get_cell("dimenet", "minibatch_lg", reduced=True, device="cpu")
+    a = cells.batch_for_cell(bundle, 0)
+    a["features"][:] = 0
+    b = cells.batch_for_cell(bundle, 1)
+    want = ref_cells.batch_for_cell(ref_get_cell("dimenet", "minibatch_lg", reduced=True), 1)
+    np.testing.assert_array_equal(b["features"], want["features"])
+    assert np.abs(b["features"]).max() > 0
+
+
 def test_build_triplets_at_minibatch_lg_full_edge_count():
     bundle = get_cell("dimenet", "minibatch_lg", device="cpu")
     specs = bundle.make_inputs()

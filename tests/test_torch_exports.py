@@ -19,16 +19,12 @@ import pathlib
 import pytest
 
 PACKAGES = ["core", "train", "optim", "models.embedding", "serve", "dist", "data",
-            "configs", "launch"]
+            "configs", "launch", "dist.sharding", "configs._families", "models.layers",
+            "models.transformer", "models.dlrm", "models.xdeepfm", "models.mind",
+            "models.bert4rec"]
 
 # reference names the port has not ported yet: {package: {name: ROADMAP entry}}
-WAITING = {
-    "configs": {
-        "FAMILY_SHAPES": "A6.5", "FAMILY_SHAPES_REDUCED": "A6.5", "all_cells": "A6.5",
-        "arch_family": "A6.5", "arch_shapes": "A6.5",
-    },
-    "launch": {"dryrun": "A6.5", "mesh": "A6.5"},
-}
+WAITING = {}
 
 
 def _defined(path: pathlib.Path, package: bool) -> set:

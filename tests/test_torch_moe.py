@@ -128,10 +128,30 @@ def test_moe_ffn_bf16_operands_give_f32_products(arch):
 
 
 def test_moe_expert_parallel_dispatch_waits_for_the_mesh_slice():
+    """``"ep"`` runs across the ranks of a mesh that carries a process
+    group (``tests/test_torch_moe_ep.py``); without one, or on an abstract
+    mesh, it raises a ValueError that says so, and never falls back to the
+    dense dispatch."""
+    from repro_torch.dist.sharding import lm_rules
+    from repro_torch.launch.mesh import Mesh, make_production_mesh
+
     ref_cfg, _, p = _ref_moe_params("olmoe-1b-7b")
     cfg = dataclasses.replace(_port_moe_cfg(ref_cfg.moe), dispatch="ep")
-    with pytest.raises(NotImplementedError, match="A6.5"):
-        layers.moe_ffn(torch.zeros((1, 4, ref_cfg.d_model)), p, cfg)
+    x = torch.zeros((1, 4, ref_cfg.d_model))
+    with pytest.raises(ValueError, match="process group|torch.distributed group"):
+        layers.moe_ffn(x, p, cfg)
+    rules = lm_rules(make_production_mesh())
+    with pytest.raises(ValueError, match="torch.distributed group"):
+        layers.moe_ffn(x, p, cfg, rules=rules)
+    auto = dataclasses.replace(cfg, dispatch="auto")
+    with pytest.raises(ValueError, match="torch.distributed group"):
+        # auto takes ep where the model axis divides the 8 experts
+        layers.moe_ffn(x, p, auto, rules=lm_rules(Mesh({"data": 2, "model": 4})))
+    # ... and dense where it does not (16), as the reference's
+    got = layers.moe_ffn(x, p, auto, rules=rules)[0]
+    assert torch.equal(got, layers.moe_ffn(x, p, dataclasses.replace(cfg, dispatch="dense"))[0])
+    with pytest.raises(ValueError, match="unknown MoE dispatch"):
+        layers.moe_ffn(x, p, dataclasses.replace(cfg, dispatch="sparse"))
 
 
 # ------------------------------------------------------------------ model

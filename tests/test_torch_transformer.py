@@ -276,10 +276,10 @@ def test_full_cell_specs_and_flops_match_reference(arch, shape):
 
 
 def test_moe_and_mla_configs_raise():
-    """The MoE and MLA configs build and run in the port (A6.4,
-    ``tests/test_torch_moe.py`` and ``tests/test_torch_mla.py`` hold them
-    to the reference); what still raises is the MoE's expert-parallel
-    dispatch, which needs the mesh slice (A6.5)."""
+    """The MoE and MLA configs build and run in the port
+    (``tests/test_torch_moe.py`` and ``tests/test_torch_mla.py`` hold them
+    to the reference); what raises is the MoE's expert-parallel dispatch
+    without a mesh that carries a process group."""
     for arch in ("olmoe-1b-7b", "minicpm3-4b"):
         cfg = _module(arch).make_config(reduced=True)
         params = tf.init_params(torch.Generator().manual_seed(0), cfg)
@@ -287,7 +287,7 @@ def test_moe_and_mla_configs_raise():
         assert h.shape == (1, 4, cfg.d_model)
         if cfg.moe:
             ep = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch="ep"))
-            with pytest.raises(NotImplementedError, match="A6.5"):
+            with pytest.raises(ValueError, match="torch.distributed group"):
                 tf.forward(params, torch.zeros((1, 4), dtype=torch.int32), ep)
 
 
