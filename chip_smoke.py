@@ -133,13 +133,22 @@ Phases:
      process) on the 16 x 16 and 2 x 16 x 16 production meshes: every
      cell's per-device bytes, built on the meta device, against the card's
      memory, and equal to the reference's (``tests/dryrun_reference_bytes
-     .json``); nothing allocated on the card.
-  17. expert parallelism: 4 processes on the one card, a 2 x 2 (data,
-     model) mesh over a gloo group at 127.0.0.1, one olmoe-1b-7b MoE layer
-     at full width (d 2,048, 64 experts top-8, d_ff 1,024) in bf16 on 4,096
-     tokens a rank; the output held to the dense dispatch of this process
-     where nothing drops, and at the default capacity (φ = 2) to a plain
-     emulation of the capacity rule.
+     .json``); the collectives counted for dimenet's flat-graph cells and
+     the expert-parallel cells equal ``tests/dryrun_collectives.json``,
+     null elsewhere; nothing allocated on the card.
+  17. the mesh: 4 processes on the one card, a 2 x 2 (data, model) mesh
+     over a gloo group at 127.0.0.1. Expert parallelism: one olmoe-1b-7b
+     MoE layer at full width (d 2,048, 64 experts top-8, d_ff 1,024) in
+     bf16 on 4,096 tokens a rank; the output held to the dense dispatch of
+     this process where nothing drops, and at the default capacity (φ = 2)
+     to a plain emulation of the capacity rule. Then the sharded DimeNet
+     at full width on ``minibatch_lg``'s full shape (169,984 nodes,
+     168,960 edges, 337,920 triplets): the ranks' rows and summed
+     gradients held to rank 0's ``forward_flat`` of the batch with the
+     locality clamp applied; training through ``launch/train.py --mesh
+     2x2`` with dense-only saves, a failure and a resume from the one
+     chain, the ranks' parameters bit-equal after every step and the
+     restore; one step's recorded collectives equal to the dry run's count.
 
 Each path's launch counters are set to 0 just before it and read just
 after; every kernel of a path must have launched in it, and a kernel's
@@ -4161,6 +4170,7 @@ def phase_dbrx(kernels, root, device="cuda", reduced=False, layers=1, decode_ste
 # ------------------------------------------------------------------ phase 16
 
 DRYRUN_TABLE = os.path.join(HERE, "tests", "dryrun_reference_bytes.json")
+DRYRUN_COLLECTIVES = os.path.join(HERE, "tests", "dryrun_collectives.json")
 
 
 def _kernel_counters():
@@ -4186,7 +4196,9 @@ def phase_dryrun(root):
     """The dry run's CLI over the 40 cells on both production meshes, in
     this process: a line a cell with its per-device GB against the card's
     memory; each cell's bytes (state or params, and inputs) equal to the
-    reference's table; no memory taken on the card."""
+    reference's table; the collectives of the cells it counts equal to the
+    CPU's count (``tests/dryrun_collectives.json``), null with a reason
+    elsewhere; no memory taken on the card."""
     import torch
 
     from repro_torch.configs import all_cells
@@ -4197,10 +4209,13 @@ def phase_dryrun(root):
         c.reset()
     with open(DRYRUN_TABLE) as f:
         table = json.load(f)
+    with open(DRYRUN_COLLECTIVES) as f:
+        coll_table = json.load(f)
     card = torch.cuda.get_device_properties(0).total_memory
     allocated = torch.cuda.memory_allocated()
     t0 = time.monotonic()
     out = {}
+    counted = {"16x16": {}, "2x16x16": {}}  # MB of collectives a device and step
     for mesh, tag, flag in (("16x16", "pod", []), ("2x16x16", "multipod", ["--multi-pod"])):
         d = os.path.join(root, mesh)
         check(dryrun.main(["--all", "--out", d] + flag) == 0, f"dry run on {mesh}")
@@ -4217,10 +4232,16 @@ def phase_dryrun(root):
                   and rec["fits_card"] == (rec["memory"]["argument_size"] <= card),
                   f"{arch} {shape} {mesh} against the card's {card} B")
             fits += rec["fits_card"]
+            key = f"{arch}/{shape}"
+            check(rec["collectives"] == coll_table[mesh].get(key) and rec["collectives_note"],
+                  f"dry run {arch} {shape} {mesh}: collectives as counted on the CPU")
+            if rec["collectives"] is not None:
+                counted[mesh][key] = round(rec["collectives"]["total"] / 1e6, 3)
         top = max(all_cells(), key=lambda c: sum(table[mesh][f"{c[0]}/{c[1]}"].values()))
         out[mesh] = dict(cells=len(all_cells()), fit_the_card=fits,
                          largest=f"{top[0]} {top[1]}",
-                         largest_gb=sum(table[mesh][f"{top[0]}/{top[1]}"].values()) / 1e9)
+                         largest_gb=sum(table[mesh][f"{top[0]}/{top[1]}"].values()) / 1e9,
+                         collectives_mb_a_device=counted[mesh])
     check(torch.cuda.memory_allocated() == allocated, "the dry run took no card memory")
     _no_kernel_path(counters, "the dry run")
     out.update(card_gb=card / 1e9, seconds=round(time.monotonic() - t0, 2))
@@ -4265,8 +4286,9 @@ def _ep_capacity(moe, n, phi):
 def ep_worker(argv) -> int:
     """One rank of phase 17: joins the gloo group, lays the 2 x 2 mesh,
     runs its batch shard through ``moe_ffn(dispatch="ep")`` at φ = E / k
-    (nothing drops) and at the default φ, saves its outputs under ``root``
-    and prints its figures as a JSON line."""
+    (nothing drops) and at the default φ, saves its outputs under ``root``,
+    runs the sharded DimeNet (``dimenet_worker``) and prints its figures as
+    a JSON line."""
     import datetime
 
     import torch
@@ -4311,10 +4333,180 @@ def ep_worker(argv) -> int:
                        os.path.join(root, f"ep_{name}_{rank}.pt"))
             rec[name] = dict(capacity=cap, dropped=int((counts - cap).clamp(min=0).sum()),
                              ms=round(statistics.median(ms), 3))
+        del params, x, x_l, y
+        rec["dimenet"] = dimenet_worker(mesh, root, device, reduced)
         print(json.dumps(rec), flush=True)
     finally:
         dist.destroy_process_group()
     return 0
+
+
+# The sharded DimeNet's bars on the card, bf16 at full width. The CPU
+# tests' largest bf16 readings (tests/test_torch_dimenet_sharded.py, the
+# reduced config): rows 0.030 of a row's scale between the port and the
+# reference, whose GEMMs round differently (0.0 between the port's sharded
+# and plain forwards, which share them on the CPU); summed gradients
+# 0.0065 of a leaf's largest entry between the sharded and the plain
+# backward (2 x 2 mesh, reduced minibatch_lg and full_graph_sm). On the
+# card the two sides' GEMMs differ in their row counts, so cuBLAS may
+# round them differently too: the bars take the rows' reading with a
+# margin of 1.7 and the gradients' with one of 7.7.
+DN_ROW_BAR = 0.05    # of a row's scale (its largest |entry|)
+DN_GRAD_BAR = 0.05   # of a leaf's largest |entry|
+DN_TIMED_STEPS = 3
+
+
+def _dimenet_batch_path(root):
+    return os.path.join(root, "dimenet_minibatch_lg.npz")
+
+
+def _row_scale_err(got, want) -> float:
+    """max over rows of max |got - want| / max |want| in the row."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs().amax(1) / want.abs().amax(1).clamp_min(1e-30)).max())
+
+
+def dimenet_worker(mesh, root, device, reduced) -> dict:
+    """One rank's sharded DimeNet (phase 17): ``minibatch_lg`` (reduced when
+    ``reduced``) at full width, the batch this process's parent wrote.
+    (a) The rank's rows of ``forward_flat_sharded``, gathered to every
+    rank, against rank 0's ``forward_flat`` of the batch with the clamp
+    applied, and of the batch as drawn (which must miss the bar: the check
+    can fail). (b) The summed gradients of ``train_loss`` against the same
+    plain batch's backward, on rank 0. (d) One train step's recorded
+    collectives against the dry run's count for the cell on this mesh's
+    shape, then the step timed, and its collectives alone (each call
+    replayed at its size). (c) ``launch.train.main --mesh 2x2`` in
+    this process's group: 4 steps with dense-only saves every 2 and a
+    failure at 3, then the rerun resuming from the one chain. No
+    hand-written kernel runs: the counters stay 0."""
+    import io
+    from contextlib import redirect_stdout
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_cell
+    from repro_torch.dist.group_ops import all_gather, all_reduce, recording, reduce_scatter
+    from repro_torch.launch import dryrun, train
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import dimenet as dn
+    from repro_torch.train.loop import batch_to_device
+    from repro_torch.train.steps import sum_grads
+    from repro_torch.tree import tree_map
+
+    counters = _kernel_counters()
+    for c in counters.values():
+        c.reset()
+    rank = dist.get_rank()
+    dev = device if device == "cpu" else f"cuda:{rank % torch.cuda.device_count()}"
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    path = _dimenet_batch_path(root)
+    t0 = time.monotonic()
+    while not os.path.exists(path + ".done"):
+        check(time.monotonic() - t0 < 300, "the parent wrote the dimenet batch")
+        time.sleep(0.2)
+    bundle = get_cell("dimenet", "minibatch_lg", reduced=reduced, device=dev, mesh=mesh)
+    batch = batch_to_device(dict(np.load(path)), dev)
+    cfg, rules, n = bundle.cfg, bundle.rules, mesh.size
+    group = mesh.group_for(("data", "model"))
+    check(dn._use_sharded(batch, cfg, rules), "minibatch_lg shards over the 2 x 2 mesh")
+    state = bundle.make_state(17)
+    params = state.params
+    kj, ji = dn.clamp_remap(batch, n)
+    out = dict(moved=float(((kj != batch["tri_kj"]) | (ji != batch["tri_ji"]))
+                           .to(torch.float32).mean()))
+    clamped = dict(batch, tri_kj=kj, tri_ji=ji)
+
+    # (a) rows
+    with torch.no_grad():
+        every = all_gather(dn.forward_flat_sharded(params, batch, cfg, rules), group)
+        if rank == 0:
+            want = dn.forward_flat(params, clamped, cfg)
+            out.update(finite=bool(torch.isfinite(every).all()),
+                       row_err=_row_scale_err(every, want),
+                       row_err_unclamped=_row_scale_err(every, dn.forward_flat(params, batch, cfg)))
+            del want
+    del every
+
+    # (b) gradients: the ranks' sum against the plain backward
+    def grads(b, r):
+        leaves = []
+
+        def track(t):
+            leaves.append(t.detach().requires_grad_(True))
+            return leaves[-1]
+
+        loss, _ = dn.train_loss(tree_map(track, params), b, cfg, r)
+        return float(loss), list(torch.autograd.grad(loss, leaves))
+
+    loss_s, g_s = grads(batch, rules)
+    g_s = sum_grads(g_s, group)
+    if rank == 0:
+        loss_p, g_p = grads(clamped, dn.NO_SHARDING)
+        out.update(loss=[loss_s, loss_p], grad_err=max(
+            float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            for a, b in zip(g_s, g_p)))
+        del g_p
+    del g_s
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # (d) one step's collectives against the dry run's count; the step's time
+    with recording() as r:
+        bundle.step_fn(state, batch)
+    got = r.summary()
+    want, _ = dryrun.count_collectives("dimenet", "minibatch_lg", Mesh(dict(mesh.shape)),
+                                       reduced=reduced)
+    ms = []
+    for _ in range(DN_TIMED_STEPS):
+        dist.barrier()
+        sync()
+        t1 = time.monotonic()
+        bundle.step_fn(state, batch)
+        sync()
+        ms.append((time.monotonic() - t1) * 1e3)
+    # the step's collectives alone: each call replayed at its size and dtype
+    ops = dict(zip(("all-gather", "reduce-scatter", "all-reduce"),
+                   (all_gather, reduce_scatter, all_reduce)))
+    coll_ms = []
+    for _ in range(2):
+        dist.barrier()
+        sync()
+        t1 = time.monotonic()
+        for c in r.calls:
+            ops[c.op](torch.zeros(c.operand_bytes // c.dtype.itemsize, dtype=c.dtype,
+                                  device=dev), group)
+        sync()
+        coll_ms.append((time.monotonic() - t1) * 1e3)
+    out.update(count_equal=got == want, counts=got["counts"], bytes=got["total"],
+               wire_bytes=got["wire_total"], step_ms=[round(x, 2) for x in ms],
+               collectives_ms=round(min(coll_ms), 2))
+    del state, params, batch, clamped
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # (c) training through the launcher, a failure, a resume
+    cmd = ["--arch", "dimenet", "--shape", "minibatch_lg", "--mesh", "2x2", "--steps", "4",
+           "--interval", "2", "--device", device, "--ckpt-dir", os.path.join(root, "dimenet-ckpt")]
+    if not reduced:
+        cmd.append("--full-config")
+    rcs, logs = [], []
+    t1 = time.monotonic()
+    for extra in (["--fail-at", "3"], []):
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            rcs.append(train.main(cmd + extra))
+        logs.append(buf.getvalue())
+    out.update(launcher_rcs=rcs, launcher_s=round(time.monotonic() - t1, 2),
+               launcher_log=logs if rank == 0 else None,
+               launches={k: c.count for k, c in counters.items()})
+    return out
 
 
 def _moe_capacity_plain(x_l, params, moe, cap, cd):
@@ -4348,16 +4540,23 @@ EP_DENSE_BAR = 2 ** -6  # ep (bf16 products) vs dense (f32 products), of the row
 EP_PLAIN_BAR = 2 ** -7  # ep vs the plain capacity rule: bf16 products of other shapes
 
 
-def phase_moe_ep(root, device="cuda", reduced=False):
-    """Expert-parallel MoE over 4 processes on the one card (2 x 2 mesh,
-    gloo at 127.0.0.1): each rank's output against this process's dense
-    dispatch of its batch shard where nothing drops, and against the plain
-    capacity rule at the default φ; touched masks and aux losses against
-    the shards' routing. A rank that fails fails the phase."""
+def phase_moe_ep(root, device="cuda", reduced=False, one_process_step_s=None):
+    """The mesh over 4 processes on the one card (2 x 2 mesh, gloo at
+    127.0.0.1). Expert-parallel MoE: each rank's output against this
+    process's dense dispatch of its batch shard where nothing drops, and
+    against the plain capacity rule at the default φ; touched masks and
+    aux losses against the shards' routing. Then each rank's sharded
+    DimeNet (``dimenet_worker``) on the ``minibatch_lg`` batch this process
+    writes while the ranks start; its figures beside phase 10's
+    one-process step (``one_process_step_s``). A rank that fails fails the
+    phase."""
     import socket
 
+    import numpy as np
     import torch
 
+    from repro_torch.configs import get_cell
+    from repro_torch.data.cells import batch_for_cell
     from repro_torch.models.layers import moe_ffn
 
     counters = _kernel_counters()
@@ -4377,6 +4576,12 @@ def phase_moe_ep(root, device="cuda", reduced=False):
                               env=env, cwd=HERE)
              for r in range(world)]
     try:
+        # the sharded DimeNet's batch: one build (the node features are
+        # phase 10's, cached) for the 4 ranks, which read it after the EP check
+        path = _dimenet_batch_path(root)
+        np.savez(path, **batch_for_cell(get_cell("dimenet", "minibatch_lg", reduced=reduced,
+                                                 device=device), 0))
+        open(path + ".done", "w").close()
         moe, params, x = _ep_inputs(device, reduced)
         cd = torch.bfloat16
         dense, plain = [], []
@@ -4427,12 +4632,55 @@ def phase_moe_ep(root, device="cuda", reduced=False):
     check(sum(rec["default"]["dropped"] for rec in ranks) > 0,
           f"the default φ dropped tokens, so the capacity rule is exercised: {ranks}")
     _no_kernel_path(counters, "the dense and plain MoE")
+    dn_ranks = [rec.pop("dimenet") for rec in ranks]
     out = dict(card=card_name(), ranks=ranks, max_rel_err=errs,
                dense_ms=[round(ms, 3) for _, ms in dense],
                tokens_dropped={f"rank {rec['rank']}": rec["default"]["dropped"]
                                for rec in ranks},
                seconds=round(time.monotonic() - t0, 2))
     log(f"moe ep: {json.dumps(out)}")
+    out["dimenet"] = _check_dimenet_ranks(dn_ranks, one_process_step_s)
+    return out
+
+
+def _check_dimenet_ranks(dn, one_process_step_s):
+    """Phase 17's checks of the ranks' sharded DimeNet records, and its
+    log lines."""
+    r0 = dn[0]
+    check(r0["finite"] and r0["row_err"] <= DN_ROW_BAR,
+          f"sharded dimenet rows vs rank 0's forward_flat of the clamped batch: "
+          f"{r0['row_err']:.3e} of the row scale <= {DN_ROW_BAR}")
+    check(r0["row_err_unclamped"] > DN_ROW_BAR,
+          f"the batch as drawn gives other rows ({r0['row_err_unclamped']:.3e}): "
+          f"the check can fail")
+    loss_s, loss_p = r0["loss"]
+    check(r0["grad_err"] <= DN_GRAD_BAR and abs(loss_s - loss_p) <= DN_GRAD_BAR * abs(loss_p),
+          f"summed gradients vs the plain backward: {r0['grad_err']:.3e} of a leaf's "
+          f"largest <= {DN_GRAD_BAR}; loss {loss_s} vs {loss_p}")
+    for r, rec in enumerate(dn):
+        check(rec["launcher_rcs"] == [2, 0], f"rank {r}: launcher --mesh fail then resume "
+              f"{rec['launcher_rcs']}")
+        check(rec["count_equal"], f"rank {r}: one step's collectives equal the dry run's "
+              f"count: {rec['counts']}")
+        check(rec["moved"] == r0["moved"] and rec["bytes"] == r0["bytes"],
+              f"rank {r} moved and bytes as rank 0's")
+        check(not any(rec["launches"].values()), f"rank {r}: the sharded dimenet runs no "
+              f"hand-written kernel: {rec['launches']}")
+    first, second = r0["launcher_log"]
+    check("resumed from checkpoint at step 2" in second
+          and "parameters bit-equal after every step and the restore" in second,
+          f"the rerun resumed from the one chain, ranks bit-equal: {second[-500:]}")
+    step_ms = [statistics.median(rec["step_ms"]) for rec in dn]
+    one = (statistics.median(one_process_step_s[1:]) * 1e3
+           if one_process_step_s and len(one_process_step_s) > 1 else None)
+    out = dict(card=card_name(), clamp_moved_share=r0["moved"], row_err=r0["row_err"],
+               row_err_unclamped=r0["row_err_unclamped"], grad_err=r0["grad_err"],
+               loss_sharded_plain=r0["loss"], step_ms_by_rank=[round(x, 2) for x in step_ms],
+               one_process_step_ms=None if one is None else round(one, 2),
+               collectives_ms_by_rank=[rec["collectives_ms"] for rec in dn],
+               bytes_a_step=r0["bytes"], wire_bytes_a_step=r0["wire_bytes"],
+               counts_a_step=r0["counts"], launcher_s=[rec["launcher_s"] for rec in dn])
+    log(f"dimenet sharded: {json.dumps(out)}")
     return out
 
 
@@ -4504,14 +4752,15 @@ def main(argv=None) -> int:
         mark("k-means")
         phase_recovery_experiment()
         mark("recovery experiment")
-        in_tempdir("dimenet", phase_dimenet, kernels)
+        dimenet_out = in_tempdir("dimenet", phase_dimenet, kernels)
         in_tempdir("qwen2", phase_qwen2, kernels)
         in_tempdir("nemotron", phase_nemotron, kernels)
         in_tempdir("olmoe", phase_olmoe, kernels)
         in_tempdir("minicpm3", phase_minicpm3, kernels)
         in_tempdir("dbrx", phase_dbrx, kernels)
         in_tempdir("dryrun", phase_dryrun)
-        in_tempdir("moe-ep", phase_moe_ep)
+        in_tempdir("mesh", lambda root: phase_moe_ep(
+            root, one_process_step_s=dimenet_out["minibatch_lg"]["step_s"]))
         for k in kernels:
             check(k["launches"] > 0, f"{k['name']} ran on its path")
     log(f"seconds by phase: {json.dumps(phase_s)}")

@@ -384,13 +384,27 @@ def dimenet_flops(cfg: m_dimenet.DimeNetConfig, n_nodes, n_edges, n_tri,
     return float(f) * batch
 
 
+def _gnn_grad_group(inputs, cfg, rules: ShardingRules):
+    """The group a flat-graph step sums its gradients over: the node axes'
+    subgroup, where the mesh carries a group and the cell's batch takes the
+    sharded forward (``m_dimenet._use_sharded``, read off the input
+    specs); None otherwise."""
+    mesh = rules.mesh
+    if not (getattr(mesh, "has_group", False) and m_dimenet._use_sharded(inputs, cfg, rules)):
+        return None
+    return mesh.group_for(rules.axes_for("nodes", inputs["features"].shape[0]))
+
+
 def gnn_cell(arch: str, base_cfg: m_dimenet.DimeNetConfig, shape: str,
              reduced: bool = False, device="cuda", mesh=None) -> CellBundle:
     """A dimenet train cell: ``molecule`` (a batch of small molecules, the
     species table tracked) or a flat graph (nodes with features, node
     classification, nothing tracked). Full flat shapes pad node and edge
     counts to multiples of 512, as the reference's (its 512-chip mesh); the
-    pad rows are inert."""
+    pad rows are inert. The loss takes the rules, as the reference's does:
+    on a mesh that carries a group, a flat-graph cell whose batch shards
+    trains through ``forward_flat_sharded``, and its step sums the ranks'
+    gradients (``_gnn_grad_group``)."""
     spec = (S.GNN_SHAPES_REDUCED if reduced else S.GNN_SHAPES)[shape]
     dev = resolve_device(device)
     rules = gnn_rules(mesh)
@@ -440,8 +454,9 @@ def gnn_cell(arch: str, base_cfg: m_dimenet.DimeNetConfig, shape: str,
         flops = 3.0 * dimenet_flops(cfg, N, E, T)
     tracked = m_dimenet.tracked_specs(cfg)
     optimizer = split_optimizer(rowwise_adagrad(0.01), adagrad(0.01))
-    step_fn = make_train_step(lambda params, batch: m_dimenet.train_loss(params, batch, cfg),
-                              optimizer)
+    step_fn = make_train_step(
+        lambda params, batch: m_dimenet.train_loss(params, batch, cfg, rules), optimizer,
+        grad_group=_gnn_grad_group(inputs, cfg, rules))
     return CellBundle(
         arch=arch, shape=shape, kind="train", cfg=cfg, device=dev,
         init=lambda gen: m_dimenet.init_params(gen, cfg), step_fn=step_fn,

@@ -20,9 +20,13 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from ..device import resolve_device
 
-def init_touched(num_rows: int, device="cpu") -> torch.Tensor:
-    return torch.zeros((num_rows,), dtype=torch.bool, device=device)
+
+def init_touched(num_rows: int, device="cuda") -> torch.Tensor:
+    """An all-False mask of ``num_rows`` on ``device``: the card unless the
+    caller asks for the CPU (``device.resolve_device`` raises without one)."""
+    return torch.zeros((num_rows,), dtype=torch.bool, device=resolve_device(device))
 
 
 def mark_touched(mask: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:

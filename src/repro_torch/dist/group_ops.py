@@ -1,0 +1,246 @@
+"""Collectives over a process group for code that runs across the ranks of a
+mesh: differentiable, recorded, and countable without a group.
+
+``all_gather``, ``reduce_scatter`` and ``all_reduce`` are the ops a
+``shard_map`` cell of the reference issues (``jax.lax.all_gather(tiled=
+True)``, ``psum_scatter(tiled=True)``, ``psum``), as ``torch.autograd``
+functions over a ``torch.distributed`` group:
+  * the backward of an all-gather is a reduce-scatter (sum) of the
+    cotangent, and the backward of a reduce-scatter an all-gather, as JAX
+    transposes them;
+  * an all-reduce's backward is chosen by the caller: ``"sum"`` all-reduces
+    the cotangent (``torch.distributed.nn``'s rule: each rank's loss is its
+    own and the loss meant is their mean), ``"identity"`` passes it
+    through (the result is one replicated value, every rank computes the
+    same loss from it, and a replicated parameter's gradient is the sum of
+    the ranks' gradients).
+They call the list forms of ``torch.distributed.all_gather`` and
+``reduce_scatter`` (the ``*_tensor`` forms are deprecated in newer
+releases), which gloo runs on CPU and CUDA tensors, f32 and bf16, on
+subgroups too; no op is staged through host memory here.
+
+Every call is noted by the innermost active :func:`recording` (the op, its
+operand bytes, the group's size), forward and backward alike. A
+:class:`RecordingGroup` stands in for a group of ``size`` ranks and moves
+nothing: a collective over it returns a tensor of the right shape and
+dtype (on the meta device, with no storage), so a step runs on ``meta``
+over a production mesh and its collectives are counted from the calls it
+makes (``launch/dryrun.py``). ``collective_bytes`` sums the records in the
+reference's shape (``src/repro/launch/dryrun.py``): operand bytes per op,
+the per-device wire bytes of a ring algorithm, counts, totals.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import List
+
+import torch
+
+COLLECTIVE_OPS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                  "collective-permute")
+
+
+class RecordingGroup:
+    """A group of ``size`` ranks in which this process is rank 0: the
+    helpers here move nothing over it. A stand-in for counting, never for
+    computing: the values it returns are this rank's own."""
+
+    rank = 0
+
+    def __init__(self, size: int):
+        self.size = size
+
+    def __repr__(self):
+        return f"RecordingGroup(size={self.size})"
+
+
+def group_size(group) -> int:
+    """The number of ranks in ``group`` (None: the default group)."""
+    if isinstance(group, RecordingGroup):
+        return group.size
+    import torch.distributed as dist
+
+    return dist.get_world_size(group)
+
+
+def group_rank(group) -> int:
+    """This process's rank within ``group`` (None: the default group)."""
+    if isinstance(group, RecordingGroup):
+        return group.rank
+    import torch.distributed as dist
+
+    return dist.get_rank(group)
+
+
+@dataclasses.dataclass(frozen=True)
+class Call:
+    op: str             # one of COLLECTIVE_OPS
+    operand_bytes: int  # what this rank puts in
+    group_size: int
+    dtype: torch.dtype
+
+
+class Recorder:
+    """The collectives issued while it was active, in order."""
+
+    def __init__(self):
+        self.calls: List[Call] = []
+
+    def summary(self) -> dict:
+        return collective_bytes(self.calls)
+
+
+_RECORDERS: List[Recorder] = []
+
+
+@contextlib.contextmanager
+def recording():
+    """Record every collective of this module issued inside the block."""
+    rec = Recorder()
+    _RECORDERS.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDERS.remove(rec)
+
+
+def _note(op: str, x: torch.Tensor, n: int) -> None:
+    if _RECORDERS:
+        _RECORDERS[-1].calls.append(Call(op, x.numel() * x.element_size(), n, x.dtype))
+
+
+def collective_bytes(calls) -> dict:
+    """Per-device collective traffic of ``calls``, in the reference's shape
+    and by its ring formulas, from each call's operand bytes b and group
+    size g: all-gather wire b·(g−1); all-reduce 2·b·(g−1)/g; reduce-scatter
+    b·(g−1)/g; all-to-all b·(g−1)/g; collective-permute b."""
+    out = {op: 0.0 for op in COLLECTIVE_OPS}
+    wire = {op: 0.0 for op in COLLECTIVE_OPS}
+    count = {op: 0 for op in COLLECTIVE_OPS}
+    for c in calls:
+        b, g = float(c.operand_bytes), c.group_size
+        if c.op == "all-gather":
+            w = b * (g - 1)
+        elif c.op == "all-reduce":
+            w = 2.0 * b * (g - 1) / g
+        elif c.op in ("reduce-scatter", "all-to-all"):
+            w = b * (g - 1) / g
+        else:
+            w = b
+        out[c.op] += b
+        wire[c.op] += w
+        count[c.op] += 1
+    out["total"] = sum(out[o] for o in COLLECTIVE_OPS)
+    out["wire_total"] = sum(wire[o] for o in COLLECTIVE_OPS)
+    out["wire"] = wire
+    out["counts"] = count
+    return out
+
+
+# ------------------------------------------------------------- the raw ops
+
+
+def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    n = group_size(group)
+    _note("all-gather", x, n)
+    if isinstance(group, RecordingGroup):
+        return torch.cat([x] * n, dim=dim)
+    import torch.distributed as dist
+
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def _scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    n = group_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce-scatter of {tuple(x.shape)} along {dim} over {n} ranks")
+    _note("reduce-scatter", x, n)
+    chunks = [c.contiguous() for c in x.chunk(n, dim=dim)]
+    if isinstance(group, RecordingGroup):
+        return chunks[group.rank].clone()
+    import torch.distributed as dist
+
+    out = torch.empty_like(chunks[0])
+    dist.reduce_scatter(out, chunks, group=group)
+    return out
+
+
+def _sum(x: torch.Tensor, group) -> torch.Tensor:
+    _note("all-reduce", x, group_size(group))
+    y = x.clone()
+    if not isinstance(group, RecordingGroup):
+        import torch.distributed as dist
+
+        dist.all_reduce(y, group=group)
+    return y
+
+
+# ------------------------------------------------------- differentiable ops
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter(g, ctx.group, ctx.dim), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.group, ctx.dim), None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, backward):
+        ctx.group, ctx.backward = group, backward
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.backward == "identity":
+            return g, None, None
+        return _sum(g, ctx.group), None, None
+
+
+def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in group-rank order
+    (``all_gather(tiled=True)``). Backward: a reduce-scatter (sum)."""
+    return _AllGather.apply(x, group, dim)
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The ranks' ``x`` summed, and this rank's slice of the sum along
+    ``dim`` (``psum_scatter(tiled=True)``). Backward: an all-gather."""
+    return _ReduceScatter.apply(x, group, dim)
+
+
+def all_reduce(x: torch.Tensor, group, backward: str = "sum") -> torch.Tensor:
+    """The ranks' ``x`` summed (``psum``). ``backward``: ``"sum"``
+    all-reduces the cotangent, ``"identity"`` passes it through (see the
+    module's docstring). A tensor that needs no gradient takes one call."""
+    if backward not in ("sum", "identity"):
+        raise ValueError(f"unknown all-reduce backward {backward!r}")
+    if not x.requires_grad:
+        return _sum(x, group)
+    return _AllReduce.apply(x, group, backward)
+
+
+__all__ = ["COLLECTIVE_OPS", "Call", "Recorder", "RecordingGroup", "all_gather",
+           "all_reduce", "collective_bytes", "group_rank", "group_size", "recording",
+           "reduce_scatter"]

@@ -10,9 +10,21 @@ the params of a serving cell, and the inputs), summed — the counterpart of
 the reference's ``memory_analysis().argument_size_in_bytes``. Beside it:
 the cell's ``model_flops`` and whether its per-device bytes fit the card
 (``torch.cuda.get_device_properties(0).total_memory``; ``null`` without a
-card). The reference's compiled ``flops`` and per-type collective bytes
-are absent: the port has no compiler to read them from, and their count
-from the port's explicit collective calls comes with ROADMAP A6.5b.
+card). The reference's compiled ``flops`` are absent: the port has no
+compiler to read them from.
+
+``collectives`` has the reference's shape (per-type operand bytes, ring
+``wire`` bytes, ``counts``, ``total``, ``wire_total``), counted from the
+calls the port's code makes (``count_collectives``): the code runs on the
+meta device over a recording mesh (``launch.mesh.make_recording_mesh``,
+whose groups move nothing) and ``dist.group_ops`` records each call, as
+it does over a real group. Counted: dimenet's flat-graph cells, whose
+train step runs the sharded forward and backward and sums the gradients
+(one device's whole step); and the cells whose MoE resolves to
+expert-parallel dispatch, where only ``models.layers._moe_ep``'s
+collectives run on a group in the port. Every other cell's collectives
+are GSPMD's in the reference and run on no group in the port yet (ROADMAP
+A6.6): ``collectives`` is null there, ``collectives_note`` says why.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch dlrm-rm2 --shape train_batch
@@ -33,14 +45,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..configs import all_cells, get_cell
+from ..configs import all_cells, arch_family, get_cell
 from ..configs._families import InputSpec
+from ..dist.group_ops import recording
 from ..dist.sharding import PartitionSpec
+from ..models import dimenet as m_dimenet
+from ..models.layers import moe_dispatch, moe_ffn
 from ..tree import flatten_with_path, keystr
-from .mesh import Mesh, make_production_mesh
+from .mesh import Mesh, make_production_mesh, make_recording_mesh
 
-NOT_YET = ("collectives and the compiled flops: counted from the port's "
-           "explicit collective calls with ROADMAP A6.5b")
+NOT_YET = "the compiled flops: the port has no compiler to read them from"
 
 
 def _axes(entry):
@@ -121,6 +135,81 @@ def card_bytes() -> Optional[int]:
     return int(torch.cuda.get_device_properties(0).total_memory)
 
 
+def step_collectives(bundle, state, batch) -> dict:
+    """The collectives of one ``bundle.step_fn(state, batch)``, as this
+    rank issues them."""
+    with recording() as rec:
+        bundle.step_fn(state, batch)
+    return rec.summary()
+
+
+def moe_collectives(bundle, mesh: Mesh, device="meta") -> dict:
+    """``_moe_ep``'s collectives of one rank of ``mesh`` over an LM cell's
+    step: every layer's MoE on the rank's token shard (its micro-batches in
+    turn), forward, and backward for a train cell; the rank holding the
+    router and its experts, as ``_moe_ep`` takes them. On ``meta`` over a
+    recording mesh nothing is computed; over a host mesh on another device
+    the layers run on random inputs and their collectives move."""
+    from ..models.layers import act_fn
+
+    cfg = bundle.cfg
+    moe, d, L = cfg.moe, cfg.d_model, cfg.n_layers
+    train = bundle.kind == "train"
+    tok = bundle.make_inputs()["tokens"]
+    b_l, s = shard_shape(tok.shape, bundle.input_pspecs["tokens"], mesh)
+    n_micro = getattr(bundle.step_fn, "n_micro", 1) if train else 1
+    e_l = moe.n_experts // mesh.shape["model"]
+    fsdp = bundle.rules.axes_for("d_model", d) or ()
+    d_l = d // math.prod(mesh.shape[a] for a in fsdp)
+    gen = torch.Generator().manual_seed(0)
+
+    def draw(*shape):
+        t = (torch.empty(shape, device="meta") if device == "meta"
+             else (0.05 * torch.randn(shape, generator=gen)).to(device))
+        return t.requires_grad_(train)
+
+    with recording() as rec:
+        total = 0.0
+        for _ in range(L):
+            params = dict(router=draw(d, moe.n_experts), w_up=draw(e_l, d_l, moe.d_ff),
+                          w_down=draw(e_l, moe.d_ff, d_l))
+            if moe.gated:
+                params["w_gate"] = draw(e_l, d_l, moe.d_ff)
+            for _ in range(n_micro):
+                x = draw(b_l // n_micro, s, d).to(cfg.compute_dtype)
+                y, _, aux = moe_ffn(x, params, moe, act=act_fn(cfg.act),
+                                    compute_dtype=cfg.compute_dtype, rules=bundle.rules)
+                if train:
+                    total = total + y.to(torch.float32).sum() + aux
+        if train:
+            total.backward()
+    return rec.summary()
+
+
+def count_collectives(arch: str, shape: str, mesh: Mesh, reduced: bool = False):
+    """(collectives, note): one device's collectives of the cell's step on
+    ``mesh`` (``dist.group_ops.collective_bytes``' shape) and what they cover, or
+    (None, why) for a cell the port runs on no group."""
+    rec_mesh = make_recording_mesh(mesh)
+    bundle = get_cell(arch, shape, device="meta", mesh=rec_mesh, reduced=reduced)
+    family = arch_family(arch)
+    if family == "gnn" and m_dimenet._use_sharded(bundle.make_inputs(), bundle.cfg,
+                                                  bundle.rules):
+        coll = step_collectives(bundle, bundle.state_shapes(),
+                                meta_inputs(bundle.make_inputs()))
+        return coll, ("the train step: the sharded forward and backward "
+                      "(models.dimenet.forward_flat_sharded) and the gradients' sum")
+    if (family == "lm" and bundle.cfg.moe is not None
+            and moe_dispatch(bundle.cfg.moe, bundle.rules) == "ep"):
+        coll = moe_collectives(bundle, rec_mesh)
+        what = "forward and backward" if bundle.kind == "train" else "forward"
+        return coll, (f"models.layers._moe_ep over the {bundle.cfg.n_layers} MoE layers, "
+                      f"{what}; the cell's other collectives (GSPMD's in the reference) "
+                      "run on no group in the port yet (ROADMAP A6.6)")
+    return None, ("the reference's collectives here are what GSPMD inserts; the port "
+                  "runs this cell on no process group yet (ROADMAP A6.6)")
+
+
 def run_cell(arch: str, shape: str, multi_pod: bool,
              card: Optional[int] = None) -> dict:
     t0 = time.monotonic()
@@ -128,6 +217,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
     bundle = get_cell(arch, shape, device="meta", mesh=mesh)
     split = argument_bytes(bundle, mesh)
     arg = sum(split.values())
+    coll, note = count_collectives(arch, shape, mesh)
     return dict(
         arch=arch, shape=shape, kind=bundle.kind,
         mesh="2x16x16" if multi_pod else "16x16",
@@ -136,6 +226,8 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
         model_flops=bundle.model_flops,
         card_bytes=card,
         fits_card=None if card is None else arg <= card,
+        collectives=coll,
+        collectives_note=note,
         not_yet=NOT_YET,
         build_s=round(time.monotonic() - t0, 3),
         status="ok",
@@ -168,8 +260,12 @@ def main(argv=None):
             gb = rec["memory"]["argument_size"] / 1e9
             fits = "" if card is None else (
                 f" of {card / 1e9:.2f} GB: {'fits' if rec['fits_card'] else 'does not fit'}")
+            coll = rec["collectives"]
+            wire = ("" if coll is None else
+                    f" collectives {coll['total'] / 1e6:.3f} MB "
+                    f"({coll['wire_total'] / 1e6:.3f} MB on the wire) a device")
             print(f"[ok]   {arch} × {shape} ({tag}) {gb:.2f} GB a device{fits} "
-                  f"model_flops={rec['model_flops']:.3e}", flush=True)
+                  f"model_flops={rec['model_flops']:.3e}{wire}", flush=True)
         except Exception as e:
             rec = dict(arch=arch, shape=shape,
                        mesh="2x16x16" if args.multi_pod else "16x16",

@@ -11,7 +11,10 @@ needs no devices; the dry run (``launch/dryrun.py``) reads per-device bytes
 off it. ``make_host_mesh`` lays a mesh over the ranks of an initialised
 process group, in axis order with the last axis fastest (as
 ``jax.make_mesh`` lays out devices), and opens a subgroup for every set of
-axes a collective may reduce over.
+axes a collective may reduce over. ``make_recording_mesh`` gives a mesh's
+shape a :class:`~repro_torch.dist.group_ops.RecordingGroup` for every set
+of axes instead: code run over it issues its collectives and moves
+nothing, so they are counted without ranks (the dry run).
 
 The hardware constants are the roofline's: an NVIDIA H100 80GB HBM3 (SXM)
 at its 700 W power limit, the data sheet's peaks (dense bf16 on the tensor
@@ -131,3 +134,18 @@ def make_host_mesh(data: int = 1, model: int = 1, group=None) -> Mesh:
             groups[key] = mine
     return Mesh(shape, group=group if group is not None else dist.group.WORLD,
                 coords=coords, groups=groups)
+
+
+def make_recording_mesh(mesh: Mesh) -> Mesh:
+    """``mesh``'s shape as seen by its first rank (index 0 on every axis),
+    with a ``RecordingGroup`` of the right size for every set of axes: a
+    collective over it is recorded and moves nothing."""
+    from ..dist.group_ops import RecordingGroup
+
+    names = list(mesh.shape)
+    groups = {}
+    for n in range(1, len(names) + 1):
+        for axes in itertools.combinations(names, n):
+            groups[frozenset(axes)] = RecordingGroup(math.prod(mesh.shape[a] for a in axes))
+    return Mesh(mesh.shape, group=groups[frozenset(names)],
+                coords={a: 0 for a in names}, groups=groups)

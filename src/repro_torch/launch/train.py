@@ -4,7 +4,7 @@
       --arch ARCH \
       --shape SHAPE --steps 100 --interval 20 --bits 4 \
       --policy intermittent --ckpt-dir CKPT_DIR [--reduced | --full-config] \
-      [--vocab-cap ROWS] [--fail-at 60] [--device cuda|cpu]
+      [--vocab-cap ROWS] [--fail-at 60] [--device cuda|cpu] [--mesh DATAxMODEL]
 
 ARCH is any arch of the registry: xdeepfm, dlrm-rm2, mind, bert4rec
 (recsys), dimenet (gnn), qwen2-0.5b, nemotron-4-15b, olmoe-1b-7b,
@@ -15,12 +15,96 @@ family: ``train_batch`` (recsys),
 
 Runs on the card (``--device cuda``, the default) and raises when there is
 none; ``--device cpu`` runs the same path on the CPU.
+
+``--mesh DATAxMODEL`` runs this process as one of DATA·MODEL ranks of a
+(data, model) mesh (``launch.mesh.make_host_mesh``), e.g.
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch dimenet \
+      --shape full_graph_sm --mesh 2x2 --ckpt-dir CKPT_DIR ...
+
+It takes the process group already initialised, or initialises a gloo
+group from ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``.
+Rank r runs on ``cuda:(r % device_count)``. Every rank draws the same
+batches; the step runs the sharded forward on the rank's ranges and sums
+the ranks' gradients in one all-reduce, so every rank applies the same
+update, and after every step and the restore the ranks' parameters are
+checked bit-equal. One rank (rank 0) writes the one checkpoint chain and
+every rank restores from it. The mesh takes dimenet's flat-graph cells
+(``full_graph_sm``, ``minibatch_lg``, ``ogb_products``) whose batch shards
+over it; any other cell raises ``ValueError``: it runs on no group yet
+(ROADMAP A6.6) and never trains on one device in its place.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import sys
+
+
+def _parse_mesh(spec: str):
+    try:
+        d, m = (int(x) for x in spec.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh takes DATAxMODEL, e.g. 2x2; got {spec!r}") from None
+    if d < 1 or m < 1:
+        raise ValueError(f"--mesh {spec!r}: each axis holds at least one rank")
+    return d, m
+
+
+def _refuse(arch: str, shape: str, why: str):
+    return ValueError(
+        f"--mesh: {arch} {shape} {why}; the port runs on a mesh only dimenet's "
+        "flat-graph cells whose batch shards over it. The other cells' mesh step "
+        "waits for ROADMAP A6.6")
+
+
+def join_mesh(spec: str, arch: str, shape: str, device: str):
+    """(mesh, this rank's device, whether this call opened the group) for
+    ``--mesh``. Refuses a cell the port cannot run on a group before it
+    touches one."""
+    import torch
+    import torch.distributed as dist
+
+    from ..configs import arch_family
+    from .mesh import make_host_mesh
+
+    d, m = _parse_mesh(spec)
+    if arch_family(arch) != "gnn" or shape == "molecule":
+        raise _refuse(arch, shape, "runs on no process group yet")
+    opened = not dist.is_initialized()
+    if opened:
+        dist.init_process_group("gloo")
+    if dist.get_world_size() != d * m:
+        raise ValueError(f"--mesh {spec} needs {d * m} ranks; the group holds "
+                         f"{dist.get_world_size()}")
+    mesh = make_host_mesh(d, m)
+    if torch.device(device).type == "cuda" and torch.cuda.is_available():
+        device = f"cuda:{dist.get_rank() % torch.cuda.device_count()}"
+    return mesh, device, opened
+
+
+def params_digest(params) -> str:
+    """SHA-256 of every parameter's bytes, in tree order."""
+    import torch
+
+    from ..tree import flatten_with_path
+
+    h = hashlib.sha256()
+    for _, leaf in flatten_with_path(params):
+        h.update(leaf.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy())
+    return h.hexdigest()
+
+
+def check_replicas(params, mesh, what: str) -> None:
+    """Raise unless every rank of ``mesh`` holds bit-equal ``params``."""
+    import torch.distributed as dist
+
+    mine = params_digest(params)
+    every = [None] * mesh.size
+    dist.all_gather_object(every, mine, group=mesh.group)
+    if len(set(every)) != 1:
+        raise RuntimeError(f"the ranks' parameters differ {what}: {every}")
 
 
 def main(argv=None):
@@ -41,48 +125,96 @@ def main(argv=None):
     ap.add_argument("--vocab-cap", type=int, default=None,
                     help="cap every embedding table at this many rows")
     ap.add_argument("--fail-at", type=int, default=None)
+    ap.add_argument("--mesh", default=None,
+                    help="DATAxMODEL, e.g. 2x2: one rank of a (data, model) mesh")
     ap.add_argument("--n-nodes", type=int, default=1)
     ap.add_argument("--p-fail", type=float, default=0.0)
     ap.add_argument("--train-hours", type=float, default=24.0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
+    mesh, device, opened = None, args.device, False
+    if args.mesh:
+        mesh, device, opened = join_mesh(args.mesh, args.arch, args.shape, args.device)
+    try:
+        return _train(args, mesh, device)
+    finally:
+        if opened:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _train(args, mesh, device):
     from ..configs import get_cell
     from ..core import CheckpointConfig, InMemoryStore, LocalFSStore, PAPER_DEFAULTS
     from ..core.bitwidth import BitwidthController
+    from ..models import dimenet
     from ..train.loop import SimulatedFailure, Trainer, TrainerConfig
 
     bundle = get_cell(args.arch, args.shape, reduced=args.reduced,
-                      device=args.device, vocab_cap=args.vocab_cap)
+                      device=device, vocab_cap=args.vocab_cap, mesh=mesh)
+    rank0 = True
+    if mesh is not None:
+        import torch.distributed as dist
+
+        if not dimenet._use_sharded(bundle.make_inputs(), bundle.cfg, bundle.rules):
+            raise _refuse(args.arch, args.shape,
+                          f"({bundle.make_inputs()['features'].shape[0]} nodes) does not "
+                          f"shard over {mesh!r}")
+        rank0 = dist.get_rank() == 0
+        step = bundle.step_fn
+
+        def checked_step(state, batch):
+            state, metrics = step(state, batch)
+            check_replicas(state.params, mesh, f"after step {state.step}")
+            return state, metrics
+
+        bundle.step_fn = checked_step
 
     store = LocalFSStore(args.ckpt_dir) if args.ckpt_dir else InMemoryStore()
     bitwidth = None
     if args.p_fail > 0:
         bitwidth = BitwidthController(args.n_nodes, args.p_fail, args.train_hours)
-        print(f"dynamic bit-width: E[failures]={bitwidth.estimate:.2f} → "
-              f"{bitwidth.bits}-bit")
+        if rank0:
+            print(f"dynamic bit-width: E[failures]={bitwidth.estimate:.2f} → "
+                  f"{bitwidth.bits}-bit")
     quant = None if args.bits == 0 else PAPER_DEFAULTS[args.bits]
     ckpt = CheckpointConfig(interval_batches=args.interval, policy=args.policy,
-                            quant=quant, async_write=True, device=args.device)
+                            quant=quant, async_write=True, device=device)
     trainer = Trainer(bundle, store, ckpt,
-                      TrainerConfig(total_steps=args.steps, log_every=10),
+                      TrainerConfig(total_steps=args.steps, log_every=10,
+                                    writes_checkpoints=rank0),
                       bitwidth=bitwidth)
+    if mesh is not None:
+        dist.barrier(group=mesh.group)   # the writer's earlier saves are committed
     start = trainer.init_or_restore()
-    if start:
+    if mesh is not None:
+        check_replicas(trainer.state.params, mesh, f"after the restore at {start}")
+    if start and rank0:
         print(f"resumed from checkpoint at step {start}")
     try:
         trainer.run(args.steps - start, fail_at_step=args.fail_at)
     except SimulatedFailure as e:
-        print(f"!! {e} — rerun this command to resume from the checkpoint")
+        if rank0:
+            print(f"!! {e} — rerun this command to resume from the checkpoint")
         trainer.close()
+        if mesh is not None:
+            dist.barrier(group=mesh.group)
         return 2
     trainer.manager.wait()
-    for m in trainer.history:
-        print("  " + "  ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
-                               for k, v in m.items()))
-    stats = store.counters.snapshot()
-    print(f"checkpoint bytes written: {stats['bytes_written']/1e6:.2f} MB "
-          f"({stats['put_ops']} objects)")
+    if mesh is not None:
+        dist.barrier(group=mesh.group)
+        if rank0:
+            print(f"mesh {args.mesh}: {mesh.size} ranks, parameters bit-equal after "
+                  f"every step and the restore")
+    if rank0:
+        for m in trainer.history:
+            print("  " + "  ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+                                   for k, v in m.items()))
+        stats = store.counters.snapshot()
+        print(f"checkpoint bytes written: {stats['bytes_written']/1e6:.2f} MB "
+              f"({stats['put_ops']} objects)")
     trainer.close()
     return 0
 

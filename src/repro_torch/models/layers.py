@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..dist.group_ops import all_gather, all_reduce, group_size
 from ..dist.sharding import NO_SHARDING, ShardingRules
 
 NEG_INF = float(np.finfo(np.float32).min)
@@ -306,36 +307,12 @@ def _moe_ep_cell(x_l, router, w_up, w_gate, w_down, *, cfg: MoEConfig, act,
     return out, touched, _moe_aux_loss(probs, ids, cfg.n_experts)
 
 
-class _GatherD(torch.autograd.Function):
-    """``w`` all-gathered over ``group`` along ``axis`` (tiled, ranks in
-    order). The backward sums the cotangent over the group and keeps this
-    rank's slice: a reduce-scatter through an all-reduce, which gloo runs
-    on a subgroup too."""
-
-    @staticmethod
-    def forward(ctx, w, axis, group):
-        import torch.distributed as dist
-
-        ctx.axis, ctx.group = axis, group
-        ctx.rank, ctx.size = dist.get_rank(group), w.shape[axis]
-        parts = [torch.empty_like(w) for _ in range(dist.get_world_size(group))]
-        dist.all_gather(parts, w.contiguous(), group=group)
-        return torch.cat(parts, dim=axis)
-
-    @staticmethod
-    def backward(ctx, g):
-        import torch.distributed as dist
-
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g.narrow(ctx.axis, ctx.rank * ctx.size, ctx.size), None, None
-
-
 def _gather_d(w: torch.Tensor, axis: int, group, compute_dtype) -> torch.Tensor:
     """``w``'s d_model shard all-gathered over ``group`` along ``axis``,
     cast to ``compute_dtype`` before the gather: the gathered copy is
-    transient compute input, so it travels at the compute width."""
-    return _GatherD.apply(w.to(compute_dtype), axis, group)
+    transient compute input, so it travels at the compute width. The
+    backward reduce-scatters the cotangent (``dist.group_ops``)."""
+    return all_gather(w.to(compute_dtype), group, dim=axis)
 
 
 def _moe_ep(x, params, cfg: MoEConfig, act, compute_dtype, rules: ShardingRules):
@@ -360,10 +337,8 @@ def _moe_ep(x, params, cfg: MoEConfig, act, compute_dtype, rules: ShardingRules)
     the ranks that hold a copy of it, divided by the world size: for a
     parameter every rank holds (the router, everything outside the MoE)
     the mean over all ranks; for expert j's weights the sum over the
-    batch axes' ranks of ``model`` index j, over the world size."""
-    import torch.distributed as dist
-    from torch.distributed.nn.functional import all_reduce
-
+    batch axes' ranks of ``model`` index j, over the world size. The
+    collectives are ``dist.group_ops``', so a recording mesh counts them."""
     mesh = rules.mesh
     if mesh is None or not getattr(mesh, "has_group", False):
         raise ValueError(
@@ -398,11 +373,25 @@ def _moe_ep(x, params, cfg: MoEConfig, act, compute_dtype, rules: ShardingRules)
                                      compute_dtype=compute_dtype, j=j)
     batch_axes = tuple(a for a in (rules.axes_for("batch") or ()) if a != "model")
     reduce_group = mesh.group_for(("model",) + batch_axes)
-    out = all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.group_for(("model",)))
-    dist.all_reduce(touched, op=dist.ReduceOp.SUM, group=reduce_group)
-    aux = all_reduce(aux, op=dist.ReduceOp.SUM, group=reduce_group)
-    aux = aux / dist.get_world_size(reduce_group)
+    out = all_reduce(out, mesh.group_for(("model",)))
+    touched = all_reduce(touched, reduce_group)
+    aux = all_reduce(aux, reduce_group) / group_size(reduce_group)
     return out.reshape(B, S, d).to(x.dtype), touched > 0, aux
+
+
+def moe_dispatch(cfg: MoEConfig, rules: ShardingRules) -> str:
+    """The dispatch ``moe_ffn`` takes: ``cfg.dispatch``, with ``auto``
+    resolved to ``ep`` under a mesh whose ``model`` axis is wider than 1
+    and divides the experts, to ``dense`` otherwise."""
+    dispatch = cfg.dispatch
+    if dispatch not in ("auto", "dense", "ep"):
+        raise ValueError(f"unknown MoE dispatch {dispatch!r}")
+    mesh = rules.mesh
+    model_n = mesh.shape.get("model", 1) if mesh is not None else 1
+    if dispatch == "auto":
+        dispatch = ("ep" if mesh is not None and model_n > 1
+                    and cfg.n_experts % model_n == 0 else "dense")
+    return dispatch
 
 
 def moe_ffn(x, params, cfg: MoEConfig, *, act: Callable = F.silu,
@@ -428,14 +417,7 @@ def moe_ffn(x, params, cfg: MoEConfig, *, act: Callable = F.silu,
     the routed experts change in an interval, so expert blocks checkpoint
     incrementally like embedding rows."""
     B, S, d = x.shape
-    dispatch = cfg.dispatch
-    if dispatch not in ("auto", "dense", "ep"):
-        raise ValueError(f"unknown MoE dispatch {dispatch!r}")
-    mesh = rules.mesh
-    model_n = mesh.shape.get("model", 1) if mesh is not None else 1
-    if dispatch == "auto":
-        dispatch = ("ep" if mesh is not None and model_n > 1
-                    and cfg.n_experts % model_n == 0 else "dense")
+    dispatch = moe_dispatch(cfg, rules)
     if dispatch == "ep":
         return _moe_ep(x, params, cfg, act, compute_dtype, rules)
     xf = x.reshape(-1, d)

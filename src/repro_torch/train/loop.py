@@ -36,6 +36,9 @@ class TrainerConfig:
     total_steps: int = 100
     log_every: int = 10
     use_reader_tier: bool = True
+    # False on all but one rank of a mesh: the chain is one, written by one
+    # rank, and every rank restores from it
+    writes_checkpoints: bool = True
 
 
 def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
@@ -132,7 +135,16 @@ class Trainer:
         return self.state
 
     def checkpoint(self) -> None:
-        """§3.4 workflow: stall→snapshot, resume, optimize+store in background."""
+        """§3.4 workflow: stall→snapshot, resume, optimize+store in background.
+        A rank that does not write the chain only starts the next interval:
+        fresh touched masks and a renewed reader lease."""
+        if not self.cfg.writes_checkpoints:
+            self.state = dataclasses.replace(
+                self.state,
+                touched={k: torch.zeros_like(v) for k, v in self.state.touched.items()})
+            if self.reader is not None:
+                self.lease.renew()
+            return
         extra = {}
         if self.reader is not None:
             # reader has delivered exactly `interval` batches — no in-flight gap

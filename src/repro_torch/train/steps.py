@@ -11,8 +11,21 @@ from ..tree import tree_map
 from .state import TrainState
 
 
+def sum_grads(grads, group):
+    """The sum over ``group``'s ranks of each gradient in the tree: one
+    all-reduce of every leaf flattened into one f32 buffer, split back into
+    the leaves' shapes and dtypes."""
+    from ..dist.group_ops import all_reduce
+
+    leaves = []
+    tree_map(lambda g: leaves.append(g), grads)
+    flat = all_reduce(torch.cat([g.reshape(-1).to(torch.float32) for g in leaves]), group)
+    parts = iter(torch.split(flat, [g.numel() for g in leaves]))
+    return tree_map(lambda g: next(parts).reshape(g.shape).to(g.dtype), grads)
+
+
 def make_train_step(loss_fn: Callable, optimizer: Optimizer,
-                    n_micro: int = 1) -> Callable:
+                    n_micro: int = 1, grad_group=None) -> Callable:
     """loss_fn(params, batch) -> (loss, aux); aux may carry 'touched' masks
     which are OR-ed into the state's incremental-checkpoint tracker.
 
@@ -22,7 +35,12 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
     ``n_micro``, the loss and the other aux are the means over the
     micro-batches, and the touched masks are OR-ed. Activation memory
     scales with 1/n_micro; the gradient buffer is one params-sized f32
-    tree. The update allocates new params, as the reference's does."""
+    tree. The update allocates new params, as the reference's does.
+
+    ``grad_group``: the step of one rank of a mesh whose ranks each hold
+    every parameter and compute one global loss (the sharded DimeNet): the
+    ranks' gradients are summed over the group (``sum_grads``) before the
+    update, so every rank applies the same one."""
 
     def grads_of(params, batch):
         leaves = []
@@ -58,6 +76,8 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
             metrics = {k: v / n_micro for k, v in sums.items()}
 
         with torch.no_grad():
+            if grad_group is not None:
+                grads = sum_grads(grads, grad_group)
             updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
             params = apply_updates(state.params, updates)
         touched = dict(state.touched)
@@ -70,5 +90,6 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
                                rng=state.rng)
         return new_state, metrics
 
+    train_step.n_micro = n_micro
     return train_step
 

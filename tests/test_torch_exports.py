@@ -21,7 +21,7 @@ import pytest
 PACKAGES = ["core", "train", "optim", "models.embedding", "serve", "dist", "data",
             "configs", "launch", "dist.sharding", "configs._families", "models.layers",
             "models.transformer", "models.dlrm", "models.xdeepfm", "models.mind",
-            "models.bert4rec"]
+            "models.bert4rec", "models.dimenet"]
 
 # reference names the port has not ported yet: {package: {name: ROADMAP entry}}
 WAITING = {}

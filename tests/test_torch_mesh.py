@@ -250,7 +250,12 @@ def test_dryrun_cli_writes_the_cell(tmp_path, capsys):
     assert round(rec["memory"]["argument_size"] / 1e9, 2) == 69.31
     assert rec["status"] == "ok" and rec["n_devices"] == 256 and rec["mesh"] == "16x16"
     assert rec["card_bytes"] is None and rec["fits_card"] is None  # no card here
-    assert "collectives" not in rec and "flops" not in rec
+    assert "flops" not in rec   # no compiler: the port counts no compiled flops
+    # dbrx's MoE resolves to expert-parallel dispatch on the mesh: its
+    # collectives are _moe_ep's all-reduces, counted (40 layers, 4
+    # micro-batches, 3 forward and 2 backward each)
+    assert rec["collectives"]["counts"]["all-reduce"] == 40 * 4 * 5
+    assert "_moe_ep" in rec["collectives_note"]
     assert rec["model_flops"] == ref_configs.get_cell("dbrx-132b", "train_4k").model_flops
     assert "69.31 GB a device" in capsys.readouterr().out
     assert dryrun.main(["--arch", "dbrx-132b", "--shape", "train_4k",
