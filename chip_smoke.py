@@ -149,6 +149,16 @@ Phases:
      2x2`` with dense-only saves, a failure and a resume from the one
      chain, the ranks' parameters bit-equal after every step and the
      restore; one step's recorded collectives equal to the dry run's count.
+     Then the row-sharded tables (``recsys_worker``): dlrm-rm2 (cap 2^20),
+     xdeepfm, mind and bert4rec at full width on ``train_batch`` (xdeepfm
+     at 32,768 and bert4rec at 8,192: ``RS_BATCH``) and dimenet's
+     ``molecule``, one mesh step each held to rank 0's one-process step of
+     the same state (loss, tables, accumulators, touched masks), its bytes
+     equal to the dry run's count on 2 x 2, its collectives' share of the
+     step; then dlrm-rm2 through ``launch/train.py --mesh 2x2`` with 4-bit
+     saves gathered to rank 0 (``quant_pack`` and ``chunk_hash`` there), a
+     failure and a resume whose range-read rows are held to rank 0's whole
+     restore.
 
 Each path's launch counters are set to 0 just before it and read just
 after; every kernel of a path must have launched in it, and a kernel's
@@ -4287,8 +4297,9 @@ def ep_worker(argv) -> int:
     """One rank of phase 17: joins the gloo group, lays the 2 x 2 mesh,
     runs its batch shard through ``moe_ffn(dispatch="ep")`` at φ = E / k
     (nothing drops) and at the default φ, saves its outputs under ``root``,
-    runs the sharded DimeNet (``dimenet_worker``) and prints its figures as
-    a JSON line."""
+    runs the sharded DimeNet (``dimenet_worker``) and the row-sharded
+    recsys cells (``recsys_worker``) and prints its figures as a JSON
+    line."""
     import datetime
 
     import torch
@@ -4335,6 +4346,7 @@ def ep_worker(argv) -> int:
                              ms=round(statistics.median(ms), 3))
         del params, x, x_l, y
         rec["dimenet"] = dimenet_worker(mesh, root, device, reduced)
+        rec["recsys"] = recsys_worker(mesh, root, device, reduced)
         print(json.dumps(rec), flush=True)
     finally:
         dist.destroy_process_group()
@@ -4540,7 +4552,7 @@ EP_DENSE_BAR = 2 ** -6  # ep (bf16 products) vs dense (f32 products), of the row
 EP_PLAIN_BAR = 2 ** -7  # ep vs the plain capacity rule: bf16 products of other shapes
 
 
-def phase_moe_ep(root, device="cuda", reduced=False, one_process_step_s=None):
+def phase_moe_ep(root, device="cuda", reduced=False, one_process_step_s=None, kernels=None):
     """The mesh over 4 processes on the one card (2 x 2 mesh, gloo at
     127.0.0.1). Expert-parallel MoE: each rank's output against this
     process's dense dispatch of its batch shard where nothing drops, and
@@ -4548,8 +4560,9 @@ def phase_moe_ep(root, device="cuda", reduced=False, one_process_step_s=None):
     aux losses against the shards' routing. Then each rank's sharded
     DimeNet (``dimenet_worker``) on the ``minibatch_lg`` batch this process
     writes while the ranks start; its figures beside phase 10's
-    one-process step (``one_process_step_s``). A rank that fails fails the
-    phase."""
+    one-process step (``one_process_step_s``). Then the row-sharded recsys
+    cells (``recsys_worker``; rank 0's save launches go into ``kernels``).
+    A rank that fails fails the phase."""
     import socket
 
     import numpy as np
@@ -4595,14 +4608,21 @@ def phase_moe_ep(root, device="cuda", reduced=False, one_process_step_s=None):
                 torch.cuda.synchronize()
             dense.append((y[0].to(torch.float32), (time.monotonic() - t1) * 1e3))
             cap = _ep_capacity(moe, x.shape[1], moe.capacity_factor)
-            plain.append(_moe_capacity_plain(x[i], params, moe, cap, cd))
-        outs = [p.communicate(timeout=600) for p in procs]
+            plain.append(tuple(t.cpu() for t in _moe_capacity_plain(x[i], params, moe, cap, cd)))
+        # the ranks' row-sharded cells want the card's memory: this process
+        # keeps its results on the host
+        dense = [(y.cpu(), ms) for y, ms in dense]
+        del params, x, y
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        outs = [p.communicate(timeout=900) for p in procs]
     finally:
         for p in procs:
             p.kill()
             p.wait()
-    for r, (p, (o, e)) in enumerate(zip(procs, outs)):
-        check(p.returncode == 0, f"ep rank {r} exited {p.returncode}: {e[-3000:]}")
+    failed = [f"rank {r} exited {p.returncode}: {e[-2500:]}"
+              for r, (p, (o, e)) in enumerate(zip(procs, outs)) if p.returncode != 0]
+    check(not failed, "mesh ranks failed:\n" + "\n".join(failed))
     ranks = [json.loads(o.strip().splitlines()[-1]) for o, _ in outs]
     touched_want = torch.zeros(moe.n_experts, dtype=torch.bool)
     for _, ids, _ in plain:
@@ -4633,6 +4653,7 @@ def phase_moe_ep(root, device="cuda", reduced=False, one_process_step_s=None):
           f"the default φ dropped tokens, so the capacity rule is exercised: {ranks}")
     _no_kernel_path(counters, "the dense and plain MoE")
     dn_ranks = [rec.pop("dimenet") for rec in ranks]
+    rs_ranks = [rec.pop("recsys") for rec in ranks]
     out = dict(card=card_name(), ranks=ranks, max_rel_err=errs,
                dense_ms=[round(ms, 3) for _, ms in dense],
                tokens_dropped={f"rank {rec['rank']}": rec["default"]["dropped"]
@@ -4640,6 +4661,7 @@ def phase_moe_ep(root, device="cuda", reduced=False, one_process_step_s=None):
                seconds=round(time.monotonic() - t0, 2))
     log(f"moe ep: {json.dumps(out)}")
     out["dimenet"] = _check_dimenet_ranks(dn_ranks, one_process_step_s)
+    out["recsys"] = _check_recsys_ranks(rs_ranks, kernels)
     return out
 
 
@@ -4681,6 +4703,282 @@ def _check_dimenet_ranks(dn, one_process_step_s):
                bytes_a_step=r0["bytes"], wire_bytes_a_step=r0["wire_bytes"],
                counts_a_step=r0["counts"], launcher_s=[rec["launcher_s"] for rec in dn])
     log(f"dimenet sharded: {json.dumps(out)}")
+    return out
+
+
+# Row-sharded tables (phase 17 since PR 28): the recsys train cells and
+# dimenet's molecule, one mesh step each held to one process's step of the
+# same state on the card, at the bars of the reference's own mesh test
+# (tests/test_distribution.py: the loss within 1e-4, the tables rtol 1e-3,
+# atol 1e-5), the tables' accumulators at the same bars, the touched masks
+# equal. dlrm-rm2's vocabularies capped as phase 3's.
+RS_CELLS = (("dlrm-rm2", "train_batch"), ("xdeepfm", "train_batch"),
+            ("mind", "train_batch"), ("bert4rec", "train_batch"), ("dimenet", "molecule"))
+RS_VOCAB_CAP = 2 ** 20
+# four ranks on one card each hold half of a batch, twice one process's
+# activations, so two global batches are cut to the largest power of two
+# that fits (my chip runs, PR 28): xdeepfm's CIN at 32,768 rows a rank
+# missed by 4.76 GiB; bert4rec's 8,192 sequences a rank (65,536 in 4
+# micro-batches, or 16,384 whole) by 4.88 GiB, and 32,768 takes no
+# micro-batches (the reference's rule), so 8,192 (4,096 a rank). The
+# micro-batched mesh step is held to the reference on the CPU
+# (tests/test_torch_mesh_recsys.py, 65,536 at reduced width).
+RS_BATCH = {"xdeepfm": 32768, "bert4rec": 8192}
+RS_LOSS_BAR = 1e-4
+RS_RTOL, RS_ATOL = 1e-3, 1e-5
+
+
+def _timed_collectives():
+    """Wrap ``dist.group_ops``' raw collectives so each adds its wall time
+    (between device synchronizations) to the returned list's sum; returns
+    (the seconds list, a function that unwraps them)."""
+    import torch
+
+    from repro_torch.dist import group_ops as go
+
+    spent = [0.0]
+    saved = {name: getattr(go, name) for name in ("_gather", "_scatter", "_sum")}
+
+    def timed(fn):
+        def run(*a, **kw):
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            t0 = time.monotonic()
+            out = fn(*a, **kw)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            spent[0] += time.monotonic() - t0
+            return out
+        return run
+
+    for name, fn in saved.items():
+        setattr(go, name, timed(fn))
+    return spent, lambda: [setattr(go, n, f) for n, f in saved.items()]
+
+
+def _table_leaves(state):
+    """{key: host tensor} of the tables, their accumulators and touched
+    masks, and bert4rec's row-sharded ``out_bias`` with its accumulator."""
+    from repro_torch.tree import flatten_with_path, keystr
+
+    out = {}
+    for tag in ("params", "opt_state", "touched"):
+        for path, leaf in flatten_with_path(getattr(state, tag)):
+            key = tag + keystr(path)
+            if tag == "touched" or "tables" in key or "out_bias" in key:
+                out[key] = leaf.detach().to("cpu")
+    return out
+
+
+def _recsys_cell(arch, shape, mesh, device, dev, reduced) -> dict:
+    """One cell of ``recsys_worker``: rank 0 steps the whole state in one
+    process; then every rank steps its part on the mesh (recorded, its
+    collectives timed), the result gathered to rank 0 and held to the
+    one-process step; a second mesh step timed (not bert4rec's, whose
+    exchange is seconds)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_cell
+    from repro_torch.data.cells import batch_for_cell
+    from repro_torch.dist.group_ops import recording
+    from repro_torch.dist.placement import Placement
+    from repro_torch.launch import dryrun, train
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.train.loop import batch_to_device
+    from repro_torch.tree import flatten_with_path
+
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    kw = dict(vocab_cap=RS_VOCAB_CAP) if arch == "dlrm-rm2" and not reduced else {}
+    if arch in RS_BATCH and not reduced:
+        kw["global_batch"] = RS_BATCH[arch]
+    one = get_cell(arch, shape, reduced=reduced, device=dev, **kw)
+    bundle = get_cell(arch, shape, reduced=reduced, device=dev, mesh=mesh, **kw)
+    pl = Placement(bundle, mesh)
+    rank = dist.get_rank()
+    batch = batch_for_cell(one, 0)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    full = one.make_state(11)
+    state = pl.local_state(full)
+    out = dict(split_mb=pl.split_bytes(state) / 1e6,
+               batch=next(iter(one.make_inputs().values())).shape[0])
+    want = None
+    if rank == 0:
+        sync()
+        t0 = time.monotonic()
+        s1, m1 = one.step_fn(full, batch_to_device(batch, dev))
+        sync()
+        out.update(one_process_ms=(time.monotonic() - t0) * 1e3, one_loss=float(m1["loss"]))
+        want = _table_leaves(s1)
+        del s1
+    del full
+    if cuda:
+        torch.cuda.empty_cache()
+    local = batch_to_device(pl.local_batch(batch), dev)
+    dist.barrier()
+    spent, unwrap = _timed_collectives()
+    try:
+        sync()
+        t0 = time.monotonic()
+        with recording() as rec:
+            state, metrics = bundle.step_fn(state, local)
+        sync()
+        out["mesh_ms"] = (time.monotonic() - t0) * 1e3
+    finally:
+        unwrap()
+    out.update(exchange_ms=spent[0] * 1e3, loss=float(metrics["loss"]),
+               replicated=train.params_digest(
+                   [leaf for path, leaf in flatten_with_path(state.params)
+                    if pl.param_is_replicated(path)]))
+    got = rec.summary()
+    count, _ = dryrun.count_collectives(arch, shape, Mesh(dict(mesh.shape)), reduced=reduced,
+                                        global_batch=kw.get("global_batch"))
+    out.update(bytes=got["total"], wire_bytes=got["wire_total"], counts=got["counts"],
+               count_equal=got == count)
+    whole = pl.gather_state(state)
+    if rank == 0:
+        have = _table_leaves(whole)
+        check(sorted(have) == sorted(want), f"{arch}: the gathered leaves {sorted(have)}")
+        errs, worst_abs, touched_equal = {}, 0.0, True
+        for k, w in want.items():
+            if k.startswith("touched"):
+                touched_equal &= bool(torch.equal(have[k], w))
+            else:
+                diff = (have[k] - w).abs()
+                errs[k] = float((diff - RS_RTOL * w.abs()).max())
+                worst_abs = max(worst_abs, float(diff.max()))
+        worst = max(errs, key=errs.get)
+        out.update(loss_err=abs(out["loss"] - out["one_loss"]), touched_equal=touched_equal,
+                   worst_leaf=worst, worst_excess=errs[worst], worst_abs=worst_abs)
+    del whole
+    if arch != "bert4rec":
+        dist.barrier()
+        sync()
+        t0 = time.monotonic()
+        state, _ = bundle.step_fn(state, local)
+        sync()
+        out["second_mesh_ms"] = (time.monotonic() - t0) * 1e3
+    if cuda:
+        out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del state, local
+    if cuda:
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def recsys_worker(mesh, root, device, reduced) -> dict:
+    """One rank's row-sharded recsys cells (phase 17): dlrm-rm2 (vocabularies
+    capped at 2^20), xdeepfm, mind and bert4rec at full width,
+    ``train_batch`` (65,536), and dimenet's ``molecule`` (128 x 30 atoms),
+    each through ``_recsys_cell``; then dlrm-rm2 through ``launch.train.main
+    --mesh 2x2`` in this process's group: 4 steps, 4-bit saves every 2 (the
+    row-sharded state gathered to rank 0, which saves through
+    ``quant_pack`` and ``chunk_hash``), a failure at 3, the rerun resuming
+    from the one chain with every rank's range-read rows held to rank 0's
+    whole restore."""
+    import io
+    from contextlib import redirect_stdout
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import train
+
+    counters = _kernel_counters()
+    for c in counters.values():
+        c.reset()
+    rank = dist.get_rank()
+    dev = device if device == "cpu" else f"cuda:{rank % torch.cuda.device_count()}"
+    if device == "cuda":
+        torch.cuda.set_device(dev)
+        torch.empty(1, device=dev)  # the allocator's statistics exist from here
+    out = {}
+    for arch, shape in RS_CELLS:
+        t0 = time.monotonic()
+        out[arch] = _recsys_cell(arch, shape, mesh, device, dev, reduced)
+        out[arch]["seconds"] = time.monotonic() - t0
+        print(f"rank {rank}: {arch} {json.dumps(out[arch])}", file=sys.stderr, flush=True)
+    cmd = ["--arch", "dlrm-rm2", "--shape", "train_batch", "--mesh", "2x2", "--steps", "4",
+           "--interval", "2", "--bits", "4", "--device", device,
+           "--ckpt-dir", os.path.join(root, "dlrm-mesh-ckpt")]
+    if not reduced:
+        cmd += ["--full-config", "--vocab-cap", str(RS_VOCAB_CAP)]
+    rcs, logs = [], []
+    t0 = time.monotonic()
+    for extra in (["--fail-at", "3"], []):
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            rcs.append(train.main(cmd + extra))
+        logs.append(buf.getvalue())
+    out["launcher"] = dict(rcs=rcs, seconds=time.monotonic() - t0,
+                           log=logs if rank == 0 else None,
+                           launches={k: c.count for k, c in counters.items()})
+    return out
+
+
+def _check_recsys_ranks(ranks, kernels=None):
+    """Phase 17's checks of the ranks' row-sharded records, and its log
+    line; rank 0's launches of the saves' kernels go into the kernel
+    table."""
+    r0 = ranks[0]
+    for arch, _ in RS_CELLS:
+        c = r0[arch]
+        check(c["loss_err"] < RS_LOSS_BAR, f"{arch}: mesh loss {c['loss']} vs one process's "
+              f"{c['one_loss']}")
+        check(c["worst_excess"] <= RS_ATOL, f"{arch}: tables and accumulators within rtol "
+              f"{RS_RTOL}, atol {RS_ATOL} of one process's step ({c['worst_leaf']} "
+              f"exceeds rtol by {c['worst_excess']:.3e})")
+        check(c["touched_equal"], f"{arch}: touched masks equal to one process's")
+        for r, rec in enumerate(ranks):
+            check(rec[arch]["count_equal"], f"{arch} rank {r}: one step's collectives equal "
+                  f"the dry run's count on 2 x 2: {rec[arch]['counts']}")
+            check(rec[arch]["replicated"] == c["replicated"] and rec[arch]["bytes"] == c["bytes"],
+                  f"{arch} rank {r}: replicated parameters and bytes as rank 0's")
+    for r, rec in enumerate(ranks):
+        la = rec["launcher"]
+        check(la["rcs"] == [2, 0], f"rank {r}: dlrm-rm2 --mesh fail then resume {la['rcs']}")
+        saves = {k: la["launches"][k] for k in ("quant_pack", "chunk_hash")}
+        others = {k: v for k, v in la["launches"].items() if k not in saves}
+        check(not any(others.values()), f"rank {r}: launches of other kernels: {others}")
+        check(all(saves.values()) if r == 0 else not any(saves.values()),
+              f"rank {r}: launches of the saves' kernels on rank 0 alone: {saves}")
+    first, second = r0["launcher"]["log"]
+    check("resumed from checkpoint at step 2" in second
+          and "restored rows of 4 ranks bit-equal to the one-process restore" in second
+          and "parameters bit-equal after every step and the restore" in second,
+          f"the rerun resumed from the one chain: {second[-800:]}")
+    gather = [line for line in second.splitlines() if "to rank 0 a save" in line]
+    if kernels is not None:
+        record_launches(kernels, "mesh dlrm-rm2 saves",
+                        {k: r0["launcher"]["launches"][k] for k in ("quant_pack", "chunk_hash")})
+    cells = {}
+    for arch, _ in RS_CELLS:
+        c = r0[arch]
+        cells[arch] = dict(
+            mesh_step_ms_by_rank=[round(rec[arch]["mesh_ms"], 1) for rec in ranks],
+            second_step_ms_by_rank=[round(rec[arch].get("second_mesh_ms", 0.0), 1)
+                                    for rec in ranks] if arch != "bert4rec" else None,
+            one_process_ms=round(c["one_process_ms"], 1),
+            exchange_share=[round(rec[arch]["exchange_ms"] / rec[arch]["mesh_ms"], 3)
+                            for rec in ranks],
+            bytes_a_rank=c["bytes"], wire_bytes_a_rank=c["wire_bytes"], counts=c["counts"],
+            batch=c["batch"], loss=[c["loss"], c["one_loss"]], worst_leaf=c["worst_leaf"],
+            worst_abs=c["worst_abs"],
+            worst_excess=c["worst_excess"], split_mb_a_rank=round(c["split_mb"], 2),
+            peak_gb_by_rank=[round(rec[arch].get("peak_gb", 0.0), 2) for rec in ranks],
+            seconds=round(c["seconds"], 1))
+    out = dict(card=card_name(), cells=cells, launcher_s=[round(rec["launcher"]["seconds"], 1)
+                                                          for rec in ranks],
+               gather=gather, launches=r0["launcher"]["launches"])
+    log(f"row-sharded recsys: {json.dumps(out)}")
     return out
 
 
@@ -4760,7 +5058,7 @@ def main(argv=None) -> int:
         in_tempdir("dbrx", phase_dbrx, kernels)
         in_tempdir("dryrun", phase_dryrun)
         in_tempdir("mesh", lambda root: phase_moe_ep(
-            root, one_process_step_s=dimenet_out["minibatch_lg"]["step_s"]))
+            root, one_process_step_s=dimenet_out["minibatch_lg"]["step_s"], kernels=kernels))
         for k in kernels:
             check(k["launches"] > 0, f"{k['name']} ran on its path")
     log(f"seconds by phase: {json.dumps(phase_s)}")

@@ -57,7 +57,7 @@ def get_cell(arch: str, shape: str, reduced: bool = False, device="cuda",
     the CPU; ``"meta"`` for shapes alone); ``vocab_cap`` caps every table's
     rows (dlrm-rm2 only: the other archs' tables fit the card whole, and
     their cells refuse a cap); ``global_batch`` replaces an LM shape's batch
-    (the LM cells only); ``mesh`` (``launch.mesh.Mesh``) gives the bundle
+    or a recsys train cell's (not dimenet's); ``mesh`` (``launch.mesh.Mesh``) gives the bundle
     its family's sharding rules and partition specs (none without)."""
     kw = {} if global_batch is None else dict(global_batch=global_batch)
     return _module(arch).make_cell(shape, reduced=reduced, device=device,

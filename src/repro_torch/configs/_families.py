@@ -5,7 +5,10 @@ specs and their partition specs, the sharding rules, the tracked specs for
 Check-N-Run, the optimizer, the device it all lives on, the ``MODEL_FLOPS``
 estimate of the roofline report and the logical-axes map of the params.
 The recsys family: the train cells (dlrm-rm2's sparse DLRM step, the
-generic autograd step for xdeepfm, mind and bert4rec), the serve cells
+generic autograd step for xdeepfm, mind and bert4rec; on a mesh that
+carries a process group, the step of one rank: its rows of the
+row-sharded tables and its data shard of the batch, see
+``models.embedding.ShardedLookup`` and ``dist.placement``), the serve cells
 (``serve_p99``, ``serve_bulk``) and the retrieval cell (``retrieval_cand``:
 one user against C candidates) of its four archs. The gnn family
 (dimenet) and the LM family (qwen2-0.5b, nemotron-4-15b, the MoE archs
@@ -40,7 +43,7 @@ from ..models import xdeepfm as m_xdeepfm
 from ..optim.optimizers import adagrad, rowwise_adagrad, split_optimizer
 from ..train.state import TrackedSpec, TrainState, init_train_state, rng_key_data
 from ..train.steps import make_train_step
-from ..tree import keystr, map_with_path
+from ..tree import flatten_with_path, keystr, map_with_path
 from . import shapes as S
 
 
@@ -126,6 +129,26 @@ def tree_pspecs(tree, rules: ShardingRules, axes_fn):
 # =====================================================================
 
 
+def _batch_axes(rules: ShardingRules, B: int, arch: str, shape: str):
+    """The mesh axes a train batch of ``B`` splits over; raises where it
+    does not (such a cell never trains on one device in the mesh's place)."""
+    axes = rules.axes_for("batch", B)
+    if not axes:
+        raise ValueError(f"({arch}, {shape}): a batch of {B} does not split over "
+                         f"{rules.mesh!r}")
+    return axes
+
+
+def _replicated(init: Callable, rules: ShardingRules, axes_fn) -> Callable:
+    """A predicate on a parameter's tree path: true where the rules leave
+    the parameter replicated (its partition spec names no mesh axis)."""
+    with on_meta():
+        shapes = init(torch.Generator())
+    split = {keystr(p) for p, spec in flatten_with_path(tree_pspecs(shapes, rules, axes_fn))
+             if any(e is not None for e in spec)}
+    return lambda path: keystr(path) not in split
+
+
 def recsys_param_axes(path: str, shape: Tuple[int, ...]):
     nd = len(shape)
     if "tables" in path or "emb_" in path or "lin_" in path or "item_" in path:
@@ -192,8 +215,15 @@ def _recsys_pspecs(rules: ShardingRules, inputs, B: int, kind: str):
 
 
 def recsys_cell(arch: str, cfg, shape: str, reduced: bool = False,
-                device="cuda", mesh=None) -> CellBundle:
+                device="cuda", mesh=None, global_batch: Optional[int] = None) -> CellBundle:
+    """A recsys cell; ``global_batch`` replaces a train cell's batch (where
+    the card cannot hold the shape's on every rank of a mesh)."""
     spec = (S.RECSYS_SHAPES_REDUCED if reduced else S.RECSYS_SHAPES)[shape]
+    if global_batch is not None:
+        if spec["kind"] != "train":
+            raise ValueError(f"({arch}, {shape}): a global batch replaces a train "
+                             "cell's batch only")
+        spec = dict(spec, batch=global_batch)
     kind = spec["kind"]
     if arch not in _RECSYS_MODULES:
         raise ValueError(f"({arch}, {shape}): {arch} is not one of the recsys "
@@ -204,15 +234,24 @@ def recsys_cell(arch: str, cfg, shape: str, reduced: bool = False,
     B = spec["batch"]
     tracked = mod.tracked_specs(cfg)
     optimizer = split_optimizer(rowwise_adagrad(0.01), adagrad(0.01))
+    grads = {}
+    if kind == "train" and getattr(mesh, "has_group", False):
+        # a rank of the mesh: its data shard of the batch, its rows of the
+        # tables (models.embedding.ShardedLookup); the replicated leaves'
+        # gradients summed over the batch's axes
+        grads = dict(grad_group=mesh.group_for(_batch_axes(rules, B, arch, shape)),
+                     summed=_replicated(lambda gen: mod.init_params(gen, cfg), rules,
+                                        recsys_param_axes))
     if kind == "train" and arch == "dlrm-rm2":
         # the sparse embedding update (see models/dlrm.py)
-        step_fn = m_dlrm.make_sparse_train_step(cfg, adagrad(0.01))
+        step_fn = m_dlrm.make_sparse_train_step(cfg, adagrad(0.01), rules=rules)
     elif kind == "train":
         # bert4rec's full batch accumulates over 4 micro-batches, as the
         # reference's does; the other archs take the batch whole
         step_fn = make_train_step(
-            lambda params, batch: mod.train_loss(params, batch, cfg), optimizer,
-            n_micro=4 if (arch == "bert4rec" and not reduced and B >= 65536) else 1)
+            lambda params, batch: mod.train_loss(params, batch, cfg, rules), optimizer,
+            n_micro=4 if (arch == "bert4rec" and not reduced and B >= 65536) else 1,
+            **grads)
     elif kind == "serve":
         step_fn = lambda params, batch: mod.serve(params, batch, cfg)
     elif kind == "retrieval":
@@ -384,13 +423,19 @@ def dimenet_flops(cfg: m_dimenet.DimeNetConfig, n_nodes, n_edges, n_tri,
     return float(f) * batch
 
 
-def _gnn_grad_group(inputs, cfg, rules: ShardingRules):
-    """The group a flat-graph step sums its gradients over: the node axes'
-    subgroup, where the mesh carries a group and the cell's batch takes the
-    sharded forward (``m_dimenet._use_sharded``, read off the input
-    specs); None otherwise."""
+def _gnn_grad_group(inputs, cfg, rules: ShardingRules, shape: str):
+    """The group a step sums its gradients over, where the mesh carries a
+    group: a flat graph's node axes' subgroup where the cell's batch takes
+    the sharded forward (``m_dimenet._use_sharded``, read off the input
+    specs); ``molecule``'s batch axes (data parallel: each rank its data
+    shard of the molecules; raises where the batch does not split); None
+    otherwise."""
     mesh = rules.mesh
-    if not (getattr(mesh, "has_group", False) and m_dimenet._use_sharded(inputs, cfg, rules)):
+    if not getattr(mesh, "has_group", False):
+        return None
+    if cfg.d_feat == 0:
+        return mesh.group_for(_batch_axes(rules, inputs["species"].shape[0], "dimenet", shape))
+    if not m_dimenet._use_sharded(inputs, cfg, rules):
         return None
     return mesh.group_for(rules.axes_for("nodes", inputs["features"].shape[0]))
 
@@ -403,8 +448,9 @@ def gnn_cell(arch: str, base_cfg: m_dimenet.DimeNetConfig, shape: str,
     counts to multiples of 512, as the reference's (its 512-chip mesh); the
     pad rows are inert. The loss takes the rules, as the reference's does:
     on a mesh that carries a group, a flat-graph cell whose batch shards
-    trains through ``forward_flat_sharded``, and its step sums the ranks'
-    gradients (``_gnn_grad_group``)."""
+    trains through ``forward_flat_sharded``, ``molecule`` data-parallel
+    over the batch's axes, and the step sums the ranks' gradients
+    (``_gnn_grad_group``)."""
     spec = (S.GNN_SHAPES_REDUCED if reduced else S.GNN_SHAPES)[shape]
     dev = resolve_device(device)
     rules = gnn_rules(mesh)
@@ -456,7 +502,7 @@ def gnn_cell(arch: str, base_cfg: m_dimenet.DimeNetConfig, shape: str,
     optimizer = split_optimizer(rowwise_adagrad(0.01), adagrad(0.01))
     step_fn = make_train_step(
         lambda params, batch: m_dimenet.train_loss(params, batch, cfg, rules), optimizer,
-        grad_group=_gnn_grad_group(inputs, cfg, rules))
+        grad_group=_gnn_grad_group(inputs, cfg, rules, shape))
     return CellBundle(
         arch=arch, shape=shape, kind="train", cfg=cfg, device=dev,
         init=lambda gen: m_dimenet.init_params(gen, cfg), step_fn=step_fn,

@@ -25,9 +25,10 @@ def make_config(reduced: bool = False) -> Bert4RecConfig:
 
 
 def make_cell(shape: str, reduced: bool = False, device="cuda",
-              vocab_cap: Optional[int] = None, mesh=None):
+              vocab_cap: Optional[int] = None, mesh=None,
+              global_batch: Optional[int] = None):
     if vocab_cap is not None:
         raise ValueError("bert4rec takes no vocab cap: its 1,000,448-item "
                          "table (256.1 MB f32) fits the card whole")
     return recsys_cell("bert4rec", make_config(reduced), shape, reduced, device,
-                       mesh=mesh)
+                       mesh=mesh, global_batch=global_batch)

@@ -38,6 +38,7 @@ def make_config(reduced: bool = False,
 
 
 def make_cell(shape: str, reduced: bool = False, device="cuda",
-              vocab_cap: Optional[int] = None, mesh=None):
+              vocab_cap: Optional[int] = None, mesh=None,
+              global_batch: Optional[int] = None):
     return recsys_cell("dlrm-rm2", make_config(reduced, vocab_cap), shape,
-                       reduced, device, mesh=mesh)
+                       reduced, device, mesh=mesh, global_batch=global_batch)

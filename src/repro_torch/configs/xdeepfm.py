@@ -28,10 +28,11 @@ def make_config(reduced: bool = False) -> XDeepFMConfig:
 
 
 def make_cell(shape: str, reduced: bool = False, device="cuda",
-              vocab_cap: Optional[int] = None, mesh=None):
+              vocab_cap: Optional[int] = None, mesh=None,
+              global_batch: Optional[int] = None):
     if vocab_cap is not None:
         raise ValueError("xdeepfm takes no vocab cap: its two table families "
                          "(22,451,200 rows each, dims 10 and 1: 0.99 GB f32) "
                          "fit the card whole")
     return recsys_cell("xdeepfm", make_config(reduced), shape, reduced, device,
-                       mesh=mesh)
+                       mesh=mesh, global_batch=global_batch)

@@ -52,7 +52,7 @@ import threading
 import time
 import traceback
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -1144,7 +1144,8 @@ class CheckNRunManager:
                              chain_len=len(chain), stats=stats)
 
     def restore_part(self, host: int, step: Optional[int] = None,
-                     num_hosts: Optional[int] = None) -> RestoredState:
+                     num_hosts: Optional[int] = None,
+                     whole: Iterable[str] = ()) -> RestoredState:
         """Lazily range-read ONE host's row-shard of a checkpoint: only the
         chunks whose row bounds intersect the host's target ranges are
         fetched (plus the final step's dense params, which are global).
@@ -1171,6 +1172,9 @@ class CheckNRunManager:
         ``core/integrity.py``) does NOT abort the replay — the global
         manifest's merged chunk records, whose keys retain the
         ``host_<h>/`` namespace, carry everything the planner needs.
+
+        The tables named in ``whole`` are read whole, every row, whatever
+        the host (a rank of a mesh that holds them replicated).
 
         A reader-side operation: does NOT resync the manager's policy or
         touched-row bookkeeping (use :meth:`restore`, or the partial-
@@ -1204,6 +1208,9 @@ class CheckNRunManager:
                 f"host {host} out of range for {tgt} hosts")
 
         targets = rr.shard_targets(final.tables, host, tgt)
+        for name in whole:
+            if name in targets:
+                targets[name] = [0, final.tables[name].rows]
         try:
             plan = rr.plan_ranges(chain, targets, check_coverage=True)
         except rr.RangeCoverageError as e:

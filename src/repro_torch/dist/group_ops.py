@@ -28,6 +28,12 @@ over a production mesh and its collectives are counted from the calls it
 makes (``launch/dryrun.py``). ``collective_bytes`` sums the records in the
 reference's shape (``src/repro/launch/dryrun.py``): operand bytes per op,
 the per-device wire bytes of a ring algorithm, counts, totals.
+
+``owned_rows`` and ``sum_owners`` read a table whose rows are split over
+the ranks of a mesh (each rank holds one contiguous range): every rank
+gathers the rows it owns for the ids and writes zero for the rest, and the
+partial results are summed over the owners. Each id has exactly one owner,
+so the sum adds one value to zeros and the rows arrive bit for bit.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ import dataclasses
 from typing import List
 
 import torch
+import torch.nn.functional as F
 
 COLLECTIVE_OPS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                   "collective-permute")
@@ -241,6 +248,91 @@ def all_reduce(x: torch.Tensor, group, backward: str = "sum") -> torch.Tensor:
     return _AllReduce.apply(x, group, backward)
 
 
+# ------------------------------------------------- row-sharded tables
+
+
+class _OwnedRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, shard, ids, lo):
+        n = shard.shape[0]
+        local = ids.to(torch.int64) - lo
+        own = (local >= 0) & (local < n)
+        ctx.n = n
+        # non-owned ids point one row past the shard: the backward drops them
+        ctx.save_for_backward(torch.where(own, local, n))
+        rows = F.embedding(local.clamp(0, n - 1), shard)
+        return torch.where(own[..., None], rows, rows.new_zeros(()))
+
+    @staticmethod
+    def backward(ctx, g):
+        (local,) = ctx.saved_tensors
+        grad = torch.ops.aten.embedding_dense_backward(
+            g.contiguous(), local, ctx.n + 1, -1, False)
+        return grad[: ctx.n], None, None
+
+
+def owned_rows(shard: torch.Tensor, ids: torch.Tensor, lo: int) -> torch.Tensor:
+    """``shard`` holds rows ``[lo, lo + len(shard))`` of a (V, D) or (V,)
+    table: the rows of ``ids`` it holds, zero for the others, shaped
+    ``ids.shape + shard.shape[1:]``. Backward: the cotangent of every owned
+    id added into its row of the shard (``F.embedding``'s backward, in its
+    order), the others dropped."""
+    if shard.dim() == 1:
+        return _OwnedRows.apply(shard[:, None], ids, lo)[..., 0]
+    return _OwnedRows.apply(shard, ids, lo)
+
+
+class _SumOwners(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, data, model, owners, replicated):
+        ctx.data, ctx.replicated = data, replicated
+        if replicated:
+            return _sum_over(x, owners)
+        return _sum_over(_scatter_over(x, data), model)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.replicated:
+            return _sum_over(g, ctx.data), None, None, None, None
+        return _gather_over(g, ctx.data), None, None, None, None
+
+
+def _sum_over(x, group):
+    return x.clone() if group_size(group) == 1 else _sum(x, group)
+
+
+def _scatter_over(x, group):
+    return x.clone() if group_size(group) == 1 else _scatter(x, group, 0)
+
+
+def _gather_over(x, group):
+    return x.clone() if group_size(group) == 1 else _gather(x, group, 0)
+
+
+def gather_ids(ids: torch.Tensor, data) -> torch.Tensor:
+    """Every data shard's ``ids`` concatenated along the batch axis, in
+    data order: the global batch's ids."""
+    return _gather_over(ids, data)
+
+
+def sum_owners(x: torch.Tensor, data, model, owners, replicated: bool) -> torch.Tensor:
+    """The owners' partial lookups summed, for this rank. ``data``,
+    ``model`` and ``owners`` are this rank's groups over the batch's axes,
+    over the table rows' other axes, and over all the rows' axes.
+
+    ``x`` looks up the global batch's ids (every data shard's, in data
+    order): a reduce-scatter over ``data`` leaves this rank its own data
+    shard's rows, summed over the data axis's owners, and an all-reduce
+    over ``model`` adds the other owners'. Backward: the cotangent
+    all-gathered over ``data``, so every owner sees every id's. The ranks
+    of a model group compute one replicated loss, so their cotangents are
+    one and it is taken once, not summed over them.
+
+    ``replicated`` ids (the same on every rank): an all-reduce over the
+    owners; backward, the data shards' cotangents summed over ``data``."""
+    return _SumOwners.apply(x, data, model, owners, replicated)
+
+
 __all__ = ["COLLECTIVE_OPS", "Call", "Recorder", "RecordingGroup", "all_gather",
-           "all_reduce", "collective_bytes", "group_rank", "group_size", "recording",
-           "reduce_scatter"]
+           "all_reduce", "collective_bytes", "gather_ids", "group_rank", "group_size",
+           "owned_rows", "recording", "reduce_scatter", "sum_owners"]

@@ -20,11 +20,16 @@ meta device over a recording mesh (``launch.mesh.make_recording_mesh``,
 whose groups move nothing) and ``dist.group_ops`` records each call, as
 it does over a real group. Counted: dimenet's flat-graph cells, whose
 train step runs the sharded forward and backward and sums the gradients
-(one device's whole step); and the cells whose MoE resolves to
-expert-parallel dispatch, where only ``models.layers._moe_ep``'s
-collectives run on a group in the port. Every other cell's collectives
-are GSPMD's in the reference and run on no group in the port yet (ROADMAP
-A6.6): ``collectives`` is null there, ``collectives_note`` says why.
+(one device's whole step); the four recsys train cells and dimenet's
+``molecule``, whose step runs on one rank's part of the state and the
+batch (``dist.placement``): the row-sharded tables' exchange, the loss's
+sums, the replicated gradients' sum (one device's whole step; the
+reference's collectives are GSPMD's, which XLA chooses); and the cells
+whose MoE resolves to expert-parallel dispatch, where only
+``models.layers._moe_ep``'s collectives run on a group in the port. The
+LM cells' other collectives run on no group in the port yet (ROADMAP
+A6.6b), and serving ignores the mesh: ``collectives`` is null there,
+``collectives_note`` says why.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch dlrm-rm2 --shape train_batch
@@ -48,6 +53,7 @@ import torch
 from ..configs import all_cells, arch_family, get_cell
 from ..configs._families import InputSpec
 from ..dist.group_ops import recording
+from ..dist.placement import Placement
 from ..dist.sharding import PartitionSpec
 from ..models import dimenet as m_dimenet
 from ..models.layers import moe_dispatch, moe_ffn
@@ -186,12 +192,15 @@ def moe_collectives(bundle, mesh: Mesh, device="meta") -> dict:
     return rec.summary()
 
 
-def count_collectives(arch: str, shape: str, mesh: Mesh, reduced: bool = False):
+def count_collectives(arch: str, shape: str, mesh: Mesh, reduced: bool = False,
+                      global_batch: Optional[int] = None):
     """(collectives, note): one device's collectives of the cell's step on
     ``mesh`` (``dist.group_ops.collective_bytes``' shape) and what they cover, or
-    (None, why) for a cell the port runs on no group."""
+    (None, why) for a cell the port runs on no group. ``global_batch``
+    replaces the cell's batch (``configs.get_cell``)."""
     rec_mesh = make_recording_mesh(mesh)
-    bundle = get_cell(arch, shape, device="meta", mesh=rec_mesh, reduced=reduced)
+    bundle = get_cell(arch, shape, device="meta", mesh=rec_mesh, reduced=reduced,
+                      global_batch=global_batch)
     family = arch_family(arch)
     if family == "gnn" and m_dimenet._use_sharded(bundle.make_inputs(), bundle.cfg,
                                                   bundle.rules):
@@ -199,15 +208,28 @@ def count_collectives(arch: str, shape: str, mesh: Mesh, reduced: bool = False):
                                 meta_inputs(bundle.make_inputs()))
         return coll, ("the train step: the sharded forward and backward "
                       "(models.dimenet.forward_flat_sharded) and the gradients' sum")
+    if bundle.kind == "train" and (family == "recsys" or shape == "molecule"):
+        pl = Placement(bundle, rec_mesh)
+        coll = step_collectives(bundle, pl.local_state(bundle.state_shapes()),
+                                pl.local_batch(meta_inputs(bundle.make_inputs())))
+        return coll, ("the train step of one rank: its data shard of the batch, the "
+                      "row-sharded tables' exchange (models.embedding.ShardedLookup) "
+                      "forward and backward, the loss's sums and the replicated "
+                      "gradients' sum; the reference's collectives are GSPMD's, which "
+                      "XLA chooses, not this count")
     if (family == "lm" and bundle.cfg.moe is not None
             and moe_dispatch(bundle.cfg.moe, bundle.rules) == "ep"):
         coll = moe_collectives(bundle, rec_mesh)
         what = "forward and backward" if bundle.kind == "train" else "forward"
         return coll, (f"models.layers._moe_ep over the {bundle.cfg.n_layers} MoE layers, "
                       f"{what}; the cell's other collectives (GSPMD's in the reference) "
-                      "run on no group in the port yet (ROADMAP A6.6)")
+                      "run on no group in the port yet (ROADMAP A6.6b)")
+    if family == "lm":
+        return None, ("the reference's collectives here are what GSPMD inserts; the port "
+                      "runs this cell on no process group yet (ROADMAP A6.6b)")
     return None, ("the reference's collectives here are what GSPMD inserts; the port "
-                  "runs this cell on no process group yet (ROADMAP A6.6)")
+                  "runs only the train cells on a process group: serving ignores the "
+                  "mesh, as the reference's does")
 
 
 def run_cell(arch: str, shape: str, multi_pod: bool,

@@ -19,20 +19,29 @@ none; ``--device cpu`` runs the same path on the CPU.
 ``--mesh DATAxMODEL`` runs this process as one of DATA·MODEL ranks of a
 (data, model) mesh (``launch.mesh.make_host_mesh``), e.g.
 
-  torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch dimenet \
-      --shape full_graph_sm --mesh 2x2 --ckpt-dir CKPT_DIR ...
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch dlrm-rm2 \
+      --shape train_batch --mesh 2x2 --ckpt-dir CKPT_DIR ...
 
 It takes the process group already initialised, or initialises a gloo
 group from ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``.
-Rank r runs on ``cuda:(r % device_count)``. Every rank draws the same
-batches; the step runs the sharded forward on the rank's ranges and sums
-the ranks' gradients in one all-reduce, so every rank applies the same
-update, and after every step and the restore the ranks' parameters are
-checked bit-equal. One rank (rank 0) writes the one checkpoint chain and
-every rank restores from it. The mesh takes dimenet's flat-graph cells
-(``full_graph_sm``, ``minibatch_lg``, ``ogb_products``) whose batch shards
-over it; any other cell raises ``ValueError``: it runs on no group yet
-(ROADMAP A6.6) and never trains on one device in its place.
+Rank r runs on ``cuda:(r % device_count)``. The mesh takes:
+  * dimenet's flat-graph cells (``full_graph_sm``, ``minibatch_lg``,
+    ``ogb_products``) whose batch shards over it: every rank draws the
+    same batches, runs the sharded forward on its ranges and sums the
+    ranks' gradients in one all-reduce;
+  * the recsys train cells (``train_batch``) and dimenet's ``molecule``:
+    each rank holds its rows of every table whose rows divide the mesh
+    (with their accumulators and touched masks; ``dist.placement``) and
+    trains on its data shard of the batch (``models.embedding.
+    ShardedLookup``), the replicated leaves' gradients summed over
+    ``data``. At a save the row-sharded state is gathered to rank 0, and a
+    restore reads each rank's own rows, held bit-equal to the same rows of
+    a one-process restore of the chain.
+One rank (rank 0) writes the one checkpoint chain and every rank restores
+from it; the replicated parameters are checked bit-equal across the ranks
+after every step and the restore. The LM cells raise ``ValueError``
+before any group opens: their tensor-parallel step is ROADMAP A6.6b, and
+no cell trains on one device in the mesh's place.
 """
 
 from __future__ import annotations
@@ -54,9 +63,9 @@ def _parse_mesh(spec: str):
 
 def _refuse(arch: str, shape: str, why: str):
     return ValueError(
-        f"--mesh: {arch} {shape} {why}; the port runs on a mesh only dimenet's "
-        "flat-graph cells whose batch shards over it. The other cells' mesh step "
-        "waits for ROADMAP A6.6")
+        f"--mesh: {arch} {shape} {why}; the port runs on a mesh the recsys train "
+        "cells, dimenet's molecule and its flat-graph cells whose batch shards over "
+        "it. The LM cells' tensor-parallel step waits for ROADMAP A6.6b")
 
 
 def join_mesh(spec: str, arch: str, shape: str, device: str):
@@ -70,7 +79,7 @@ def join_mesh(spec: str, arch: str, shape: str, device: str):
     from .mesh import make_host_mesh
 
     d, m = _parse_mesh(spec)
-    if arch_family(arch) != "gnn" or shape == "molecule":
+    if arch_family(arch) == "lm":
         raise _refuse(arch, shape, "runs on no process group yet")
     opened = not dist.is_initialized()
     if opened:
@@ -97,7 +106,8 @@ def params_digest(params) -> str:
 
 
 def check_replicas(params, mesh, what: str) -> None:
-    """Raise unless every rank of ``mesh`` holds bit-equal ``params``."""
+    """Raise unless every rank of ``mesh`` holds bit-equal ``params`` (a
+    tree, or a list of the replicated leaves)."""
     import torch.distributed as dist
 
     mine = params_digest(params)
@@ -149,25 +159,33 @@ def _train(args, mesh, device):
     from ..configs import get_cell
     from ..core import CheckpointConfig, InMemoryStore, LocalFSStore, PAPER_DEFAULTS
     from ..core.bitwidth import BitwidthController
+    from ..dist.placement import Placement
     from ..models import dimenet
-    from ..train.loop import SimulatedFailure, Trainer, TrainerConfig
+    from ..train.loop import MeshTrainer, SimulatedFailure, Trainer, TrainerConfig
+    from ..tree import flatten_with_path
 
     bundle = get_cell(args.arch, args.shape, reduced=args.reduced,
                       device=device, vocab_cap=args.vocab_cap, mesh=mesh)
-    rank0 = True
+    rank0, placement = True, None
+    replicated = lambda params: params
     if mesh is not None:
         import torch.distributed as dist
 
-        if not dimenet._use_sharded(bundle.make_inputs(), bundle.cfg, bundle.rules):
-            raise _refuse(args.arch, args.shape,
-                          f"({bundle.make_inputs()['features'].shape[0]} nodes) does not "
-                          f"shard over {mesh!r}")
+        if "features" in bundle.make_inputs():
+            if not dimenet._use_sharded(bundle.make_inputs(), bundle.cfg, bundle.rules):
+                raise _refuse(args.arch, args.shape,
+                              f"({bundle.make_inputs()['features'].shape[0]} nodes) does "
+                              f"not shard over {mesh!r}")
+        else:
+            placement = Placement(bundle, mesh)
+            replicated = lambda params: [leaf for path, leaf in flatten_with_path(params)
+                                         if placement.param_is_replicated(path)]
         rank0 = dist.get_rank() == 0
         step = bundle.step_fn
 
         def checked_step(state, batch):
             state, metrics = step(state, batch)
-            check_replicas(state.params, mesh, f"after step {state.step}")
+            check_replicas(replicated(state.params), mesh, f"after step {state.step}")
             return state, metrics
 
         bundle.step_fn = checked_step
@@ -182,15 +200,20 @@ def _train(args, mesh, device):
     quant = None if args.bits == 0 else PAPER_DEFAULTS[args.bits]
     ckpt = CheckpointConfig(interval_batches=args.interval, policy=args.policy,
                             quant=quant, async_write=True, device=device)
-    trainer = Trainer(bundle, store, ckpt,
-                      TrainerConfig(total_steps=args.steps, log_every=10,
-                                    writes_checkpoints=rank0),
-                      bitwidth=bitwidth)
+    tcfg = TrainerConfig(total_steps=args.steps, log_every=10, writes_checkpoints=rank0)
+    if placement is not None:
+        trainer = MeshTrainer(bundle, store, ckpt, tcfg, placement, bitwidth=bitwidth)
+    else:
+        trainer = Trainer(bundle, store, ckpt, tcfg, bitwidth=bitwidth)
     if mesh is not None:
         dist.barrier(group=mesh.group)   # the writer's earlier saves are committed
     start = trainer.init_or_restore()
     if mesh is not None:
-        check_replicas(trainer.state.params, mesh, f"after the restore at {start}")
+        check_replicas(replicated(trainer.state.params), mesh,
+                       f"after the restore at {start}")
+    if start and rank0 and placement is not None:
+        print(f"restored rows of {mesh.size} ranks bit-equal to the one-process restore "
+              f"of step {trainer.restored_rows_checked}")
     if start and rank0:
         print(f"resumed from checkpoint at step {start}")
     try:
@@ -208,6 +231,10 @@ def _train(args, mesh, device):
         if rank0:
             print(f"mesh {args.mesh}: {mesh.size} ranks, parameters bit-equal after "
                   f"every step and the restore")
+            if placement is not None and trainer.gather_s:
+                print(f"gathered {placement.split_bytes(trainer.state) * mesh.size / 1e6:.2f}"
+                      f" MB to rank 0 a save: " + ", ".join(
+                          f"{t:.3f}" for t in trainer.gather_s) + " s")
     if rank0:
         for m in trainer.history:
             print("  " + "  ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"

@@ -19,9 +19,10 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from ..dist.sharding import NO_SHARDING, ShardingRules
 from ..kernels.flash_attention import flash_attention
 from ..train.state import TrackedSpec
-from .embedding import init_tables, table_specs, take
+from .embedding import init_tables, table_lookup, table_specs, take
 from .layers import chunked_attention, dense_init, gelu, layernorm
 
 
@@ -96,12 +97,17 @@ def _project(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def encode(params, items: torch.Tensor, cfg: Bert4RecConfig,
-           attention: Callable = chunked_attention) -> torch.Tensor:
+           attention: Callable = chunked_attention,
+           emb: Optional[torch.Tensor] = None) -> torch.Tensor:
     """items (B, S) → hidden (B, S, D) in the compute dtype; bidirectional
-    attention through ``attention(q, k, v, causal=False)``."""
+    attention through ``attention(q, k, v, causal=False)``. ``emb``: the
+    items' rows, when the caller looked them up (``train_loss`` on a
+    mesh)."""
     cd = cfg.compute_dtype
     S = items.shape[1]
-    x = take(params["tables"]["item_0"], items).to(cd)
+    if emb is None:
+        emb = take(params["tables"]["item_0"], items)
+    x = emb.to(cd)
     x = x + params["dense"]["pos_emb"][None, :S].to(cd)
     blocks = params["dense"]["blocks"]
     for i in range(cfg.n_blocks):
@@ -122,30 +128,38 @@ def encode(params, items: torch.Tensor, cfg: Bert4RecConfig,
 _train_attention = functools.partial(chunked_attention, q_chunk=200, k_chunk=200)
 
 
-def train_loss(params, batch, cfg: Bert4RecConfig):
+def train_loss(params, batch, cfg: Bert4RecConfig, rules: ShardingRules = NO_SHARDING):
     """Cloze loss at masked positions, sampled softmax over the shared
-    negatives (tied item weights). → (loss, dict(accuracy, touched))."""
+    negatives (tied item weights). → (loss, dict(accuracy, touched)). The
+    masked mean divides by the global batch's mask count; on a mesh the
+    item rows and ``out_bias`` come through
+    ``models.embedding.ShardedLookup`` and the mask holds this rank's
+    rows."""
+    lookup = table_lookup(rules)
     items, labels, mask = batch["items"], batch["labels"], batch["mask"]
     negs = batch["neg_ids"].to(torch.int64)              # (N,) shared negatives
-    h = encode(params, items, cfg, _train_attention).to(torch.float32)   # (B,S,D)
-    table, bias = params["tables"]["item_0"], params["dense"]["out_bias"]
     lab = labels.to(torch.int64)
-    e_pos = take(table, lab).to(torch.float32)          # (B,S,D)
-    e_neg = take(table, negs).to(torch.float32)         # (N,D)
-    b_pos = take(bias, lab)
-    b_neg = take(bias, negs)
+    i_ids, l_ids, n_ids = lookup.ids(items), lookup.ids(lab), lookup.ids(negs, True)
+    table, bias, n = params["tables"]["item_0"], params["dense"]["out_bias"], cfg.n_items
+    h = encode(params, items, cfg, _train_attention,
+               emb=lookup.take(table, i_ids, n)).to(torch.float32)      # (B,S,D)
+    e_pos = lookup.take(table, l_ids, n).to(torch.float32)  # (B,S,D)
+    e_neg = lookup.take(table, n_ids, n).to(torch.float32)  # (N,D)
+    b_pos = lookup.take(bias, l_ids, n)
+    b_neg = lookup.take(bias, n_ids, n)
     pos = torch.einsum("bsd,bsd->bs", h, e_pos) + b_pos
     neg = torch.einsum("bsd,nd->bsn", h, e_neg) + b_neg
     logits = torch.cat([pos[..., None], neg], dim=-1)    # (B,S,1+N)
     ce = torch.logsumexp(logits, dim=-1) - logits[..., 0]
     w = mask.to(torch.float32)
-    denom = torch.clamp(torch.sum(w), min=1.0)
-    loss = torch.sum(ce * w) / denom
     with torch.no_grad():
-        acc = torch.sum((torch.argmax(logits, dim=-1) == 0) * w) / denom
-        ids = torch.cat([items.reshape(-1).to(torch.int64), lab.reshape(-1), negs])
-        touched = torch.zeros((cfg.n_items,), dtype=torch.bool, device=items.device)
-        touched[ids] = True
+        hits = (torch.argmax(logits, dim=-1) == 0) * w
+    s_ce, s_hit, s_w = lookup.sums(ce * w, hits, w)
+    denom = torch.clamp(s_w, min=1.0)
+    loss = s_ce / denom
+    with torch.no_grad():
+        acc = s_hit / denom
+        touched = lookup.touched(n, i_ids, l_ids, n_ids)
     return loss, dict(accuracy=acc, touched={"item_0": touched})
 
 

@@ -34,8 +34,9 @@ On a mesh that carries a process group (``launch.mesh.make_host_mesh``),
 ``train_loss`` takes the reference's distributed forward where it does
 (``_use_sharded``): ``forward_flat_sharded``, each rank its range of nodes,
 edges and triplets, as a cell of the reference's ``shard_map`` receives
-them, with the collectives of ``dist.group_ops``. Serving and molecule
-mode ignore the mesh, as the reference's do.
+them, with the collectives of ``dist.group_ops``. Molecule mode trains
+data-parallel there: each rank its data shard of the molecules, the loss
+over the global batch. Serving ignores the mesh, as the reference's does.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ import torch
 from ..dist.group_ops import all_gather, all_reduce, group_rank, reduce_scatter
 from ..dist.sharding import NO_SHARDING, ShardingRules
 from ..train.state import TrackedSpec
-from .embedding import mlp_apply, mlp_init, take
+from .embedding import mlp_apply, mlp_init, table_lookup, take
 from .layers import dense_init
 
 
@@ -431,7 +432,10 @@ def _sharded_loss(params, batch, cfg: DimeNetConfig, rules: ShardingRules):
 def train_loss(params, batch, cfg: DimeNetConfig,
                rules: ShardingRules = NO_SHARDING):
     """(loss, aux). Molecule mode: the energies' mean squared error, the
-    species rows touched. Graph mode: the seeds' cross-entropy and
+    species rows touched; on a mesh that carries a group, each rank's
+    molecules are its data shard of the batch, and the loss, the error and
+    the touched rows are the global batch's (``models.embedding.
+    ShardedLookup``; the 95-row species table is replicated). Graph mode: the seeds' cross-entropy and
     accuracy; on a mesh where ``_use_sharded`` holds, through
     ``forward_flat_sharded`` on this rank's ranges (``_sharded_loss``),
     each rank then holding the same global loss. The gradient rule there:
@@ -439,14 +443,18 @@ def train_loss(params, batch, cfg: DimeNetConfig,
     (``train.steps.make_train_step(grad_group=...)`` sums them in one
     all-reduce)."""
     if cfg.d_feat == 0:
+        lookup = table_lookup(rules)
+        if lookup.owned(cfg.n_species)[1] != cfg.n_species:
+            raise ValueError(f"the {cfg.n_species}-row species table is read whole; "
+                             f"it cannot shard over {rules.mesh!r}")
         energy = _molecules(params, batch, cfg)                     # (B,)
-        loss = torch.mean(torch.square(energy - batch["energy"]))
+        err = energy - batch["energy"]
         with torch.no_grad():
-            touched = torch.zeros((cfg.n_species,), dtype=torch.bool,
-                                  device=energy.device)
-            touched[batch["species"].reshape(-1).to(torch.int64)] = True
-            mae = torch.mean(torch.abs(energy - batch["energy"]))
-        return loss, dict(mae=mae, touched={"species": touched})
+            abs_err = torch.abs(err)
+        loss, mae = lookup.means(torch.square(err), abs_err)
+        with torch.no_grad():
+            touched = lookup.touched(cfg.n_species, lookup.ids(batch["species"]))
+        return loss, dict(mae=mae.detach(), touched={"species": touched})
     if _use_sharded(batch, cfg, rules):
         return _sharded_loss(params, batch, cfg, rules)
     logits = forward_flat(params, batch, cfg)                       # (N, C)

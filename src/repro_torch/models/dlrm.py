@@ -8,22 +8,25 @@ top MLP 512-512-256-1, dot-product interaction.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..core.tracker import mark_touched
+from ..dist.sharding import NO_SHARDING, ShardingRules
 from ..kernels.dot_interaction import dot_interaction as dot_interaction_op
 from ..kernels.embedding_bag import embedding_bag_fields
 from ..train.state import TrackedSpec, TrainState
 from ..tree import tree_map
 from .embedding import (
+    WHOLE,
+    bce_terms,
     bce_with_logits,
     init_tables,
     lookup_fields,
     mlp_apply,
     mlp_init,
+    table_lookup,
     table_specs,
     touched_masks,
 )
@@ -164,7 +167,7 @@ def serve_retrieval(params, batch, cfg: DLRMConfig,
 
 
 def make_sparse_train_step(cfg: DLRMConfig, dense_opt, lr: float = 0.01,
-                           eps: float = 1e-8):
+                           eps: float = 1e-8, rules: ShardingRules = NO_SHARDING):
     """Sparse embedding update with exact row-wise-AdaGrad semantics.
 
     Gradients are taken w.r.t. the *gathered vectors* (B, F, H, D), not the
@@ -173,16 +176,28 @@ def make_sparse_train_step(cfg: DLRMConfig, dense_opt, lr: float = 0.01,
     scales with touched rows, not table rows. The tables and their
     accumulators are updated IN PLACE (a full-width table is gigabytes);
     the dense params and the touched masks are new tensors each step.
+
+    On a rank of a mesh (``rules`` over a mesh that carries a group; see
+    ``models.embedding.ShardedLookup``) the vectors come from the tables'
+    owners in f32, the loss and accuracy are the global batch's, and the
+    vectors' cotangents are gathered over the ``data`` axis: a row's owner
+    aggregates every data shard's gradient for it in the global batch's id
+    order and updates the row once (the accumulator adds ``mean(g²)`` of
+    the summed gradient, so two half-updates would not be one). The dense
+    gradients are summed over ``data``.
     """
     from ..optim.optimizers import apply_updates
+    from ..train.steps import sum_grads
 
     F = cfg.n_sparse
+    lookup = table_lookup(rules)
+    names = [f"emb_{i}" for i in range(F)]
 
     def train_step(state: TrainState, batch):
-        ids = batch["sparse_ids"].to(torch.int64)             # (B,F,H)
         tables = state.params["tables"]
-        vectors = torch.stack([tables[f"emb_{i}"][ids[:, i, :]]
-                               for i in range(F)], dim=1)     # (B,F,H,D)
+        ids = lookup.ids(batch["sparse_ids"])                 # (B,F,H)
+        vectors = lookup.rows([tables[n] for n in names], ids,
+                              cfg.vocab_sizes)                # (B,F,H,D)
         vectors.requires_grad_(True)
         leaves = []
 
@@ -193,45 +208,66 @@ def make_sparse_train_step(cfg: DLRMConfig, dense_opt, lr: float = 0.01,
 
         dense_p = tree_map(track, state.params["dense"])
         logits = _logits(dense_p, batch["dense"], vectors.sum(dim=2), cfg)
-        loss = bce_with_logits(logits, batch["label"])
+        with torch.no_grad():
+            hits = ((logits > 0) == (batch["label"] > 0.5)).to(torch.float32)
+        loss, acc_m = lookup.means(bce_terms(logits, batch["label"]), hits)
         *g_leaves, g_vec = torch.autograd.grad(loss, leaves + [vectors])
         it = iter(g_leaves)
         g_dense = tree_map(lambda _: next(it), state.params["dense"])
 
         with torch.no_grad():
-            acc_m = torch.mean(((logits > 0) == (batch["label"] > 0.5))
-                               .to(torch.float32))
+            if lookup is not WHOLE:
+                g_dense = sum_grads(g_dense, lookup.data)
             d_upd, d_state = dense_opt.update(
                 g_dense, state.opt_state["dense"], state.params["dense"])
             new_dense = apply_updates(state.params["dense"], d_upd)
 
+            g_every = lookup.cotangents(g_vec, ids)           # every id's
             accs = state.opt_state["tables"]
             touched = dict(state.touched)
-            for f in range(F):
-                name = f"emb_{f}"
-                idf = ids[:, f, :].reshape(-1)                # (B·H,)
-                g = g_vec[:, f].reshape(idf.shape[0], -1)     # (B·H, D)
-                ids_s, order = torch.sort(idf)
-                first = torch.ones_like(ids_s, dtype=torch.bool)
-                first[1:] = ids_s[1:] != ids_s[:-1]
-                seg = torch.cumsum(first, dim=0) - 1
-                write_ids = ids_s[first]                      # unique, sorted
-                g_rows = torch.zeros((write_ids.shape[0], g.shape[1]),
-                                     dtype=g.dtype, device=g.device)
-                g_rows.index_add_(0, seg, g[order])
-                new_acc = accs[name][write_ids] + torch.mean(
-                    torch.square(g_rows), dim=-1)
-                upd = -lr * g_rows / (torch.sqrt(new_acc)[:, None] + eps)
-                tables[name].index_add_(0, write_ids,
-                                        upd.to(tables[name].dtype))
-                accs[name][write_ids] = new_acc
-                touched[name] = mark_touched(touched[name], idf)
+            for f, name in enumerate(names):
+                lo, held = lookup.owned(cfg.vocab_sizes[f])
+                lo = lo if held < cfg.vocab_sizes[f] else None
+                idf = ids.every[:, f, :].reshape(-1)          # (B·H,)
+                adagrad_rows(tables[name], accs[name], idf,
+                             g_every[:, f].reshape(idf.shape[0], -1), lo, lr, eps)
+                touched[name] = touched[name] | lookup.touched(
+                    cfg.vocab_sizes[f], ids.field(f))
 
         new_state = TrainState(
             step=state.step + 1,
             params=dict(tables=tables, dense=new_dense),
             opt_state=dict(tables=accs, dense=d_state),
             touched=touched, rng=state.rng)
-        return new_state, dict(loss=loss.detach(), accuracy=acc_m)
+        return new_state, dict(loss=loss.detach(), accuracy=acc_m.detach())
 
     return train_step
+
+
+def adagrad_rows(table: torch.Tensor, acc: torch.Tensor, ids: torch.Tensor,
+                 g: torch.Tensor, lo: Optional[int], lr: float, eps: float) -> None:
+    """Row-wise AdaGrad, in place, on ``table`` and ``acc``: each id's rows
+    of ``g`` (N, D) summed per distinct id in sorted order (sort, then
+    ``index_add_``: the reference's segment sum), then one update a row.
+    With ``lo`` the two hold rows ``[lo, lo + len(table))`` of the table
+    and only the ids in that range update them. The
+    shapes of the update depend on the ids, so on the meta device (the dry
+    run, which counts collectives: the update issues none) it does
+    nothing."""
+    if g.is_meta:
+        return
+    ids_s, order = torch.sort(ids)
+    first = torch.ones_like(ids_s, dtype=torch.bool)
+    first[1:] = ids_s[1:] != ids_s[:-1]
+    seg = torch.cumsum(first, dim=0) - 1
+    write_ids = ids_s[first]                                  # unique, sorted
+    g_rows = torch.zeros((write_ids.shape[0], g.shape[1]), dtype=g.dtype,
+                         device=g.device)
+    g_rows.index_add_(0, seg, g[order])
+    if lo is not None:
+        mine = (write_ids >= lo) & (write_ids < lo + table.shape[0])
+        write_ids, g_rows = write_ids[mine] - lo, g_rows[mine]
+    new_acc = acc[write_ids] + torch.mean(torch.square(g_rows), dim=-1)
+    upd = -lr * g_rows / (torch.sqrt(new_acc)[:, None] + eps)
+    table.index_add_(0, write_ids, upd.to(table.dtype))
+    acc[write_ids] = new_acc

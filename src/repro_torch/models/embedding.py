@@ -2,14 +2,18 @@
 
 The lookup is gather + sum-over-bag (dense multi-hot), the hot path the
 paper's models spend their memory bandwidth on: the ``embedding_bag``
-kernel on a card, one launch for all fields, its plain version on the CPU. Tables live whole on one
-device: the reference's row sharding over a mesh waits for the
-multi-device slice.
+kernel on a card, one launch for all fields, its plain version on the CPU.
+
+A training loss reads its tables through a :class:`Lookup`: whole tables on
+one device (``WHOLE``), or, on a rank of a mesh that carries a process
+group, :class:`ShardedLookup`, where every table whose rows divide the
+mesh is split over its ranks and the batch over its ``data`` axis
+(``table_lookup`` picks one from the sharding rules).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -63,6 +67,213 @@ def take_fields(tables: Sequence[torch.Tensor], ids: torch.Tensor) -> torch.Tens
     kernel does, and its backward would serialize a batch's repeated ids."""
     return torch.stack([take(t, ids[:, f, :]).sum(dim=-2, dtype=torch.float32)
                         for f, t in enumerate(tables)], dim=1).to(torch.bfloat16)
+
+
+class Ids(NamedTuple):
+    """A batch's ids as a loss reads them: ``local``, this rank's; ``every``,
+    the global batch's (every data shard's, in data order), or for
+    ``replicated`` ids (one set on every rank, like shared negatives) the
+    same ids. On one device both are the batch's ids."""
+
+    local: torch.Tensor
+    every: torch.Tensor
+    replicated: bool = False
+
+    @property
+    def shape(self):
+        return self.local.shape
+
+    def field(self, f: int) -> "Ids":
+        """Field ``f``'s ids of a (B, F, H) batch."""
+        return Ids(self.local[:, f], self.every[:, f], self.replicated)
+
+
+def _mask(n: int, ids: Sequence[torch.Tensor], lo: int, device) -> torch.Tensor:
+    """A bool mask of rows ``[lo, lo + n)`` of a table, set where any of
+    ``ids`` falls. Ids outside the range land on a row past the mask, so
+    every shape is fixed by the ids' (the meta device runs it)."""
+    idx = torch.cat([i.reshape(-1).to(torch.int64) for i in ids]) - lo
+    idx = torch.where((idx >= 0) & (idx < n), idx, n)
+    m = torch.zeros((n + 1,), dtype=torch.bool, device=device)
+    m[idx] = True
+    return m[:n]
+
+
+class Lookup:
+    """Whole tables on one device: how a training loss reads table rows,
+    marks the rows it touched and reduces over its batch."""
+
+    def ids(self, x: torch.Tensor, replicated: bool = False) -> Ids:
+        return Ids(x, x, replicated)
+
+    def owned(self, rows: int):
+        """(first row, row count) of a ``rows``-row table held here."""
+        return 0, rows
+
+    def take(self, table: torch.Tensor, ids: Ids, rows: int) -> torch.Tensor:
+        """``take(table, ids)``, differentiable."""
+        del rows
+        return take(table, ids.local)
+
+    def fields(self, tables: Sequence[torch.Tensor], ids: Ids,
+               rows: Sequence[int]) -> torch.Tensor:
+        """``take_fields``: ids (B, F, H) → (B, F, D) bf16, differentiable."""
+        del rows
+        return take_fields(tables, ids.local)
+
+    def rows(self, tables: Sequence[torch.Tensor], ids: Ids,
+             rows: Sequence[int]) -> torch.Tensor:
+        """Each field's rows of ids (B, F, H) → (B, F, H, D) in the tables'
+        dtype, without a gradient (dlrm-rm2's sparse step)."""
+        del rows
+        idx = ids.local.to(torch.int64)
+        return torch.stack([t[idx[:, f, :]] for f, t in enumerate(tables)], dim=1)
+
+    def cotangents(self, g: torch.Tensor, ids: Ids) -> torch.Tensor:
+        """The cotangent of ``rows``' result for every id of ``ids.every``."""
+        del ids
+        return g
+
+    def touched(self, rows: int, *ids: Ids) -> torch.Tensor:
+        """The held rows of a ``rows``-row table that ``ids`` touch."""
+        lo, n = self.owned(rows)
+        return _mask(n, [i.every for i in ids], lo, ids[0].every.device)
+
+    def sums(self, *xs: torch.Tensor):
+        """Each term's sum over the global batch."""
+        return tuple(torch.sum(x) for x in xs)
+
+    def means(self, *xs: torch.Tensor):
+        """Each term's mean over the global batch."""
+        return tuple(torch.mean(x) for x in xs)
+
+
+WHOLE = Lookup()
+
+
+class ShardedLookup(Lookup):
+    """One rank of a mesh that carries a process group. A table of V rows
+    is row-sharded where the rules split ``embed_rows`` over it (V divides
+    the rows' axes' shard count n): this rank holds rows ``[i·V/n,
+    (i+1)·V/n)``, i its index over those axes, the first outermost; other
+    tables are replicated. The batch is this rank's data shard.
+
+    A sharded table's rows come from ``dist.group_ops.owned_rows`` of the
+    global batch's ids (gathered over ``data``) and ``sum_owners``; the
+    field lookup moves bf16, after the cast (the reference's
+    ``lookup_fields``: the exchange moves half the bytes), exactly when a
+    bag's ids share one owner, as every bag of one id does. Losses are
+    global: each term's sum goes through one all-reduce over ``data``
+    whose backward passes the cotangent through, so every rank holds the
+    global loss and a replicated parameter's gradient is the sum of the
+    data ranks' (``train.steps.sum_grads``)."""
+
+    def __init__(self, rules):
+        mesh = rules.mesh
+        row_axes = tuple(rules.axis_map["embed_rows"])
+        batch_axes = tuple(rules.axis_map["batch"])
+        if not set(batch_axes) < set(row_axes):
+            raise ValueError(f"rows over {row_axes} need the batch's axes "
+                             f"{batch_axes} among them")
+        self.n = int(np.prod([mesh.shape[a] for a in row_axes]))
+        self.n_data = int(np.prod([mesh.shape[a] for a in batch_axes]))
+        self.index = 0
+        for a in row_axes:
+            self.index = self.index * mesh.shape[a] + mesh.axis_index(a)
+        self.data = mesh.group_for(batch_axes)
+        self.model = mesh.group_for(tuple(a for a in row_axes if a not in batch_axes))
+        self.owners = mesh.group_for(row_axes)
+
+    def sharded(self, rows: int) -> bool:
+        return rows % self.n == 0
+
+    def owned(self, rows: int):
+        if not self.sharded(rows):
+            return 0, rows
+        return self.index * (rows // self.n), rows // self.n
+
+    def ids(self, x, replicated=False):
+        from ..dist.group_ops import gather_ids
+
+        return Ids(x, x if replicated else gather_ids(x, self.data), replicated)
+
+    def _owners_sum(self, partial, ids: Ids):
+        from ..dist.group_ops import sum_owners
+
+        return sum_owners(partial, self.data, self.model, self.owners, ids.replicated)
+
+    def _check(self, table, rows):
+        lo, n = self.owned(rows)
+        if table.shape[0] != n:
+            raise ValueError(f"a {rows}-row table on {self.n} shards: this rank holds "
+                             f"{n} rows, not {table.shape[0]}")
+        return lo
+
+    def take(self, table, ids, rows):
+        from ..dist.group_ops import owned_rows
+
+        lo = self._check(table, rows)
+        if not self.sharded(rows):
+            return take(table, ids.local)
+        return self._owners_sum(owned_rows(table, ids.every, lo), ids)
+
+    def _split(self, tables, ids, rows, per_field):
+        """Each field's ``per_field`` of its rows for ids (B, F, H), stacked
+        on the field axis: a sharded field's of the owned rows of the
+        global ids, all of them exchanged in one ``sum_owners``; a
+        replicated field's of its local rows."""
+        from ..dist.group_ops import owned_rows
+
+        out = [None] * len(tables)
+        idx = ids.local.to(torch.int64)
+        sharded = [f for f, r in enumerate(rows) if self.sharded(r)]
+        for f, (t, r) in enumerate(zip(tables, rows)):
+            self._check(t, r)
+            if f not in sharded:
+                out[f] = per_field(take(t, idx[:, f, :]))
+        if sharded:
+            part = torch.stack([per_field(owned_rows(tables[f], ids.every[:, f, :],
+                                                     self.owned(rows[f])[0]))
+                                for f in sharded], dim=1)
+            got = self._owners_sum(part, ids)
+            for j, f in enumerate(sharded):
+                out[f] = got[:, j]
+        return torch.stack(out, dim=1)
+
+    def fields(self, tables, ids, rows):
+        return self._split(tables, ids, rows, _bag_bf16)
+
+    def rows(self, tables, ids, rows):
+        with torch.no_grad():
+            return self._split(tables, ids, rows, lambda r: r)
+
+    def cotangents(self, g, ids):
+        from ..dist.group_ops import gather_ids
+
+        return g if ids.replicated else gather_ids(g, self.data)
+
+    def sums(self, *xs):
+        from ..dist.group_ops import all_reduce
+
+        s = all_reduce(torch.stack([torch.sum(x.to(torch.float32)) for x in xs]),
+                       self.data, backward="identity")
+        return tuple(s.unbind())
+
+    def means(self, *xs):
+        return tuple(s / (x.numel() * self.n_data) for s, x in zip(self.sums(*xs), xs))
+
+
+def _bag_bf16(rows: torch.Tensor) -> torch.Tensor:
+    """A field's bag sum over H in f32, cast to bf16 (``take_fields``)."""
+    return rows.sum(dim=-2, dtype=torch.float32).to(torch.bfloat16)
+
+
+def table_lookup(rules) -> Lookup:
+    """``ShardedLookup`` on a mesh that carries a process group (or the
+    recording groups of the dry run), ``WHOLE`` otherwise."""
+    if rules is None or not getattr(rules.mesh, "has_group", False):
+        return WHOLE
+    return ShardedLookup(rules)
 
 
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor, mode: str = "sum",
@@ -153,8 +364,13 @@ def mlp_apply(layers: list, x: torch.Tensor, act=torch.relu,
     return h
 
 
-def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def bce_terms(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each example's binary cross-entropy with logits, in f32."""
     logits = logits.to(torch.float32)
     labels = labels.to(torch.float32)
-    return torch.mean(torch.clamp(logits, min=0) - logits * labels
-                      + torch.log1p(torch.exp(-torch.abs(logits))))
+    return (torch.clamp(logits, min=0) - logits * labels
+            + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return torch.mean(bce_terms(logits, labels))

@@ -18,8 +18,9 @@ from typing import Dict
 
 import torch
 
+from ..dist.sharding import NO_SHARDING, ShardingRules
 from ..train.state import TrackedSpec
-from .embedding import init_tables, table_specs, take
+from .embedding import init_tables, table_lookup, table_specs, take
 from .layers import dense_init
 
 
@@ -70,16 +71,20 @@ def squash(s: torch.Tensor) -> torch.Tensor:
     return (n2 / (1.0 + n2)) * s / torch.sqrt(n2 + 1e-9)
 
 
-def interests(params, hist: torch.Tensor, cfg: MINDConfig) -> torch.Tensor:
+def interests(params, hist: torch.Tensor, cfg: MINDConfig,
+              emb: torch.Tensor = None) -> torch.Tensor:
     """hist (B, T) item ids (0 = pad) → (B, K, D) f32 interest capsules.
 
     ``capsule_iters`` routing iterations; the result is the last one's
     capsules. The reference also updates the logits after the last
     iteration and drops them: that update is left out here, which changes
     no output and no gradient. Pad positions (``hist == 0``) get zero
-    weight after the softmax over K."""
+    weight after the softmax over K. ``emb``: the history's rows, when the
+    caller looked them up (``train_loss`` on a mesh)."""
     cd = cfg.compute_dtype
-    emb = take(params["tables"]["item_0"], hist).to(cd)            # (B,T,D)
+    if emb is None:
+        emb = take(params["tables"]["item_0"], hist)
+    emb = emb.to(cd)                                               # (B,T,D)
     valid = (hist > 0).to(torch.float32)                           # (B,T)
     e_hat = (emb @ params["dense"]["bilinear"].to(cd)).to(torch.float32)
     b = params["dense"]["routing_init"][None].expand(
@@ -101,26 +106,28 @@ def _label_aware_scores(v: torch.Tensor, target_emb: torch.Tensor,
     return torch.einsum("bd,bd->b", user, target_emb)
 
 
-def train_loss(params, batch, cfg: MINDConfig):
+def train_loss(params, batch, cfg: MINDConfig, rules: ShardingRules = NO_SHARDING):
     """Sampled-softmax over (target, shared negatives). → (loss,
-    dict(accuracy, touched))."""
+    dict(accuracy, touched)), over the global batch; on a mesh the item
+    rows come through ``models.embedding.ShardedLookup`` (the negatives
+    are the same on every rank) and the mask holds this rank's rows."""
+    lookup = table_lookup(rules)
     hist, target, negs = batch["hist"], batch["target"], batch["neg_ids"]
-    v = interests(params, hist, cfg)                                    # (B,K,D)
-    table = params["tables"]["item_0"]
-    e_t = take(table, target).to(torch.float32)                         # (B,D)
-    e_n = take(table, negs).to(torch.float32)                           # (N,D)
+    h_ids, t_ids, n_ids = lookup.ids(hist), lookup.ids(target), lookup.ids(negs, True)
+    table, n = params["tables"]["item_0"], cfg.n_items
+    v = interests(params, hist, cfg, emb=lookup.take(table, h_ids, n))  # (B,K,D)
+    e_t = lookup.take(table, t_ids, n).to(torch.float32)                # (B,D)
+    e_n = lookup.take(table, n_ids, n).to(torch.float32)                # (N,D)
     pos = _label_aware_scores(v, e_t, cfg.label_aware_pow)              # (B,)
     # negatives scored against the best-matching interest (serving semantics)
     neg = torch.amax(torch.einsum("bkd,nd->bkn", v, e_n), dim=1)        # (B,N)
     logits = torch.cat([pos[:, None], neg], dim=-1)
-    loss = torch.mean(torch.logsumexp(logits, dim=-1) - logits[:, 0])
     with torch.no_grad():
-        acc = torch.mean((torch.argmax(logits, dim=-1) == 0).to(torch.float32))
-        ids = torch.cat([hist.reshape(-1), target.reshape(-1),
-                         negs.reshape(-1)]).to(torch.int64)
-        touched = torch.zeros((cfg.n_items,), dtype=torch.bool, device=hist.device)
-        touched[ids] = True
-    return loss, dict(accuracy=acc, touched={"item_0": touched})
+        hits = (torch.argmax(logits, dim=-1) == 0).to(torch.float32)
+    loss, acc = lookup.means(torch.logsumexp(logits, dim=-1) - logits[:, 0], hits)
+    with torch.no_grad():
+        touched = lookup.touched(n, h_ids, t_ids, n_ids)
+    return loss, dict(accuracy=acc.detach(), touched={"item_0": touched})
 
 
 def serve(params, batch, cfg: MINDConfig) -> torch.Tensor:

@@ -13,7 +13,7 @@ Serving looks up both table families through the ``embedding_bag`` kernel
 on a card: two launches a forward, one for the 39 ``emb_*`` fields and
 one for the 39 ``lin_*`` fields. The kernel has no backward, so
 ``train_loss`` looks up through ``take_fields`` (differentiable gathers,
-the same numbers).
+the same numbers), or on a mesh through ``models.embedding.ShardedLookup``.
 """
 
 from __future__ import annotations
@@ -23,17 +23,17 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..dist.sharding import NO_SHARDING, ShardingRules
 from ..kernels.embedding_bag import embedding_bag_fields
 from ..train.state import TrackedSpec
 from .embedding import (
-    bce_with_logits,
+    bce_terms,
     init_tables,
     lookup_fields,
     mlp_apply,
     mlp_init,
+    table_lookup,
     table_specs,
-    take_fields,
-    touched_masks,
 )
 from .layers import dense_init
 
@@ -150,17 +150,25 @@ def _logits(params, sparse_ids, cfg: XDeepFMConfig, bag=embedding_bag_fields):
     return _logits_of(params, emb, lin, cfg)
 
 
-def train_loss(params, batch, cfg: XDeepFMConfig):
-    """BCE on the click label, the lookups through ``take_fields``. →
+def train_loss(params, batch, cfg: XDeepFMConfig, rules: ShardingRules = NO_SHARDING):
+    """BCE on the click label, the lookups through ``take_fields`` (on a
+    mesh, ``ShardedLookup.fields``: one bf16 exchange a table family). →
     (loss, dict(accuracy, touched)) with both table families' touched
-    rows."""
-    logits = _logits(params, batch["sparse_ids"], cfg, bag=take_fields)
-    loss = bce_with_logits(logits, batch["label"])
+    rows (this rank's, on a mesh), loss and accuracy over the global
+    batch."""
+    lookup = table_lookup(rules)
+    ids = lookup.ids(batch["sparse_ids"])
+    tables = params["tables"]
+    feats = [lookup.fields([tables[f"{prefix}_{f}"] for f in range(cfg.n_sparse)], ids,
+                           cfg.vocab_sizes) for prefix in ("emb", "lin")]
+    logits = _logits_of(params, *feats, cfg)
     with torch.no_grad():
-        acc = torch.mean(((logits > 0) == (batch["label"] > 0.5)).to(torch.float32))
-        touched = touched_masks(cfg.vocab_sizes, batch["sparse_ids"])
-        touched.update(touched_masks(cfg.vocab_sizes, batch["sparse_ids"], prefix="lin"))
-    return loss, dict(accuracy=acc, touched=touched)
+        hits = ((logits > 0) == (batch["label"] > 0.5)).to(torch.float32)
+    loss, acc = lookup.means(bce_terms(logits, batch["label"]), hits)
+    with torch.no_grad():
+        touched = {f"{prefix}_{f}": lookup.touched(v, ids.field(f))
+                   for prefix in ("emb", "lin") for f, v in enumerate(cfg.vocab_sizes)}
+    return loss, dict(accuracy=acc.detach(), touched=touched)
 
 
 def serve(params, batch, cfg: XDeepFMConfig, bag=embedding_bag_fields) -> torch.Tensor:

@@ -138,6 +138,7 @@ class Trainer:
         """§3.4 workflow: stall→snapshot, resume, optimize+store in background.
         A rank that does not write the chain only starts the next interval:
         fresh touched masks and a renewed reader lease."""
+        saved = self._state_to_save()
         if not self.cfg.writes_checkpoints:
             self.state = dataclasses.replace(
                 self.state,
@@ -154,7 +155,7 @@ class Trainer:
             extra["degraded_from"] = self._provenance
             self._provenance = None
         t0 = time.monotonic()
-        snap = state_to_snapshot(self.state, self.bundle.tracked, extra)
+        snap = state_to_snapshot(saved, self.bundle.tracked, extra)
         self.stall_times.append(time.monotonic() - t0)
         # retain the two most recent boundary snapshots for exact-mode
         # partial recovery (the previous boundary matters when the save at
@@ -174,6 +175,10 @@ class Trainer:
             # synchronous saves park their exception in the returned
             # future; surface it HERE, at the boundary that failed
             fut.result()
+
+    def _state_to_save(self) -> TrainState:
+        """The state a save writes: this process's."""
+        return self.state
 
     # ------------------------------------------------------ partial recovery
     def _reset_reader(self, start_batch: int) -> None:
@@ -296,6 +301,115 @@ class Trainer:
         if self.reader is not None:
             self.reader.close()
         self.manager.close()
+
+
+class MeshTrainer(Trainer):
+    """One rank of a (data, model) mesh whose cell's state is split over
+    the ranks (``dist.placement.Placement``): the rank's block of every
+    row-sharded table, accumulator and touched mask, the replicated leaves
+    whole. It draws the global batch and keeps its part. Rank 0 writes the
+    one chain (``TrainerConfig.writes_checkpoints``): at each save the
+    split leaves are gathered to its host and it saves the whole state, as
+    a single process would. A restore reads each rank's own rows of every
+    row-sharded table through ``CheckNRunManager.restore_part`` (host r of
+    the mesh's size), replicated tables and dense leaves whole; rank 0
+    also restores the chain whole (which resyncs its manager) and every
+    rank's rows are held bit-equal to the same rows of that one-process
+    restore."""
+
+    def __init__(self, bundle, store: ObjectStore, ckpt_cfg: CheckpointConfig,
+                 trainer_cfg: TrainerConfig, placement,
+                 bitwidth: Optional[BitwidthController] = None):
+        from ..data.cells import batch_for_cell
+
+        super().__init__(bundle, store, ckpt_cfg, trainer_cfg,
+                         batch_fn=lambda i: placement.local_batch(batch_for_cell(bundle, i)),
+                         bitwidth=bitwidth)
+        self.placement = placement
+        self.gather_s: List[float] = []
+        self.restored_rows_checked: Optional[int] = None
+
+    def _state_to_save(self) -> TrainState:
+        t0 = time.monotonic()
+        whole = self.placement.gather_state(self.state)
+        self.gather_s.append(time.monotonic() - t0)
+        return whole
+
+    def init_or_restore(self) -> int:
+        import torch.distributed as dist
+
+        pl, tracked = self.placement, self.bundle.tracked
+        group, n = pl.mesh.group, pl.mesh.size
+        rank = dist.get_rank(group)
+        template = pl.local_state(self.bundle.make_state())
+        whole = None
+        if self.cfg.writes_checkpoints:
+            try:
+                whole = self.manager.restore()
+            except FileNotFoundError:
+                pass
+        step = [None if whole is None else int(whole.step)]
+        dist.broadcast_object_list(step, src=dist.get_global_rank(group, 0), group=group)
+        if step[0] is None:
+            self.state = template
+            start_batch = 0
+        else:
+            part = self.manager.restore_part(rank, step=step[0], num_hosts=n,
+                                             whole=pl.replicated_tables())
+            part.dense = pl.local_dense(part.dense)
+            self.state = restore_train_state(template, part, tracked)
+            start_batch = part.extra.get("reader", {}).get("next_batch", int(part.step))
+            self._check_restored_rows(whole, part, n)
+        if self.cfg.use_reader_tier:
+            self.reader = DataReader(
+                self.batch_fn, lease=self.lease,
+                state=ReaderState(next_batch=start_batch))
+            self.lease.set_limit(start_batch + self.ckpt_cfg.interval_batches)
+        return start_batch
+
+    def _check_restored_rows(self, whole, part, n: int) -> None:
+        """Raise on every rank unless each rank's restored rows and row
+        state are bit-equal to the same rows of rank 0's whole restore."""
+        import torch.distributed as dist
+
+        from ..core.range_reader import row_shard_bounds
+        from ..dist.placement import rows_digest
+
+        names = sorted(self.bundle.tracked)
+
+        def digest(restored, first_row, bounds):
+            """The digest of each table's rows ``bounds(name)``, and its
+            row state's, of arrays whose row 0 is row ``first_row(name)``."""
+            out = []
+            for name in names:
+                lo, hi = (b - first_row(name) for b in bounds(name))
+                out.append(restored.tables[name][lo:hi])
+                out += [restored.row_state[name][k][lo:hi]
+                        for k in sorted(restored.row_state.get(name, {}))]
+            return rows_digest(out)
+
+        ranges = part.extra["shard"]["row_range"]
+        mine = digest(part, lambda name: ranges[name][0], lambda name: ranges[name])
+        group = self.placement.mesh.group
+        every = [None] * n
+        dist.all_gather_object(every, mine, group=group)
+        want = [None] * n
+        if whole is not None:
+            replicated = set(self.placement.replicated_tables())
+
+            def bounds(r):
+                def of(name):
+                    rows = whole.tables[name].shape[0]
+                    return (0, rows) if name in replicated else row_shard_bounds(rows, n)[r]
+                return of
+
+            want = [digest(whole, lambda name: 0, bounds(r)) for r in range(n)]
+        dist.broadcast_object_list(want, src=dist.get_global_rank(group, 0), group=group)
+        bad = [r for r in range(n) if every[r] != want[r]]
+        if bad:
+            raise RuntimeError(f"ranks {bad}' restored rows differ from the same rows of "
+                               f"the one-process restore of step {part.step}")
+        self.restored_rows_checked = int(part.step)
 
 
 class _SnapshotRestored:

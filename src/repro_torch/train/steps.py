@@ -2,30 +2,45 @@
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from ..optim.optimizers import Optimizer, apply_updates
-from ..tree import tree_map
+from ..tree import map_with_path, tree_map
 from .state import TrainState
 
 
-def sum_grads(grads, group):
+def sum_grads(grads, group, only: Optional[Callable] = None):
     """The sum over ``group``'s ranks of each gradient in the tree: one
     all-reduce of every leaf flattened into one f32 buffer, split back into
-    the leaves' shapes and dtypes."""
+    the leaves' shapes and dtypes. ``only(path)`` picks the leaves summed
+    (by their path in the tree); the others come back as they are."""
     from ..dist.group_ops import all_reduce
 
     leaves = []
-    tree_map(lambda g: leaves.append(g), grads)
+
+    def pick(path, g):
+        if only is None or only(path):
+            leaves.append(g)
+
+    map_with_path(pick, grads)
+    if not leaves:
+        return grads
     flat = all_reduce(torch.cat([g.reshape(-1).to(torch.float32) for g in leaves]), group)
     parts = iter(torch.split(flat, [g.numel() for g in leaves]))
-    return tree_map(lambda g: next(parts).reshape(g.shape).to(g.dtype), grads)
+
+    def put(path, g):
+        if only is None or only(path):
+            return next(parts).reshape(g.shape).to(g.dtype)
+        return g
+
+    return map_with_path(put, grads)
 
 
 def make_train_step(loss_fn: Callable, optimizer: Optimizer,
-                    n_micro: int = 1, grad_group=None) -> Callable:
+                    n_micro: int = 1, grad_group=None,
+                    summed: Optional[Callable] = None) -> Callable:
     """loss_fn(params, batch) -> (loss, aux); aux may carry 'touched' masks
     which are OR-ed into the state's incremental-checkpoint tracker.
 
@@ -37,10 +52,19 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
     scales with 1/n_micro; the gradient buffer is one params-sized f32
     tree. The update allocates new params, as the reference's does.
 
-    ``grad_group``: the step of one rank of a mesh whose ranks each hold
-    every parameter and compute one global loss (the sharded DimeNet): the
-    ranks' gradients are summed over the group (``sum_grads``) before the
-    update, so every rank applies the same one."""
+    ``grad_group``: the step of one rank of a mesh whose ranks each
+    compute one global loss: the ranks' gradients are summed over the
+    group (``sum_grads``) before the update, so every rank applies the same
+    one. The sharded DimeNet sums every leaf over its node axes' group; a
+    cell with row-sharded tables (``models.embedding.ShardedLookup``) sums
+    only the replicated leaves (``summed(path)`` true), over ``data``: a
+    table shard's gradient is already whole, from every data shard's ids,
+    and its rows are its rank's alone.
+
+    Under micro-batching on a mesh the batch's data-sharded arrays hold
+    this rank's slice of each micro-batch in turn
+    (``dist.placement.Placement.local_batch``), so micro-batch i here is
+    the rank's part of the reference's micro-batch i."""
 
     def grads_of(params, batch):
         leaves = []
@@ -77,7 +101,7 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
 
         with torch.no_grad():
             if grad_group is not None:
-                grads = sum_grads(grads, grad_group)
+                grads = sum_grads(grads, grad_group, summed)
             updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
             params = apply_updates(state.params, updates)
         touched = dict(state.touched)

@@ -1,5 +1,6 @@
 """Training on a mesh through ``launch/train.py --mesh``, the dry run's
-``collectives``, and ``core.tracker.init_touched``'s device.
+``collectives`` (and its count for reduced dlrm-rm2 against one step's
+calls over gloo), and ``core.tracker.init_touched``'s device.
 
 The launcher runs dimenet's reduced ``full_graph_sm`` (128 nodes, 512
 edges, 2,048 triplets: 32 nodes a rank) on a 2 × 2 mesh of 4 gloo
@@ -32,10 +33,10 @@ import torch
 
 from repro.configs import get_cell as ref_get_cell
 from repro.data import cells as ref_cells
-from repro_torch.configs import all_cells
+from repro_torch.configs import all_cells, arch_family
 from repro_torch.dist.group_ops import COLLECTIVE_OPS
 from repro_torch.launch import dryrun, train
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import Mesh, make_production_mesh
 from test_torch_dimenet import _without_self_loops
 from test_torch_mind import _to_numpy
 
@@ -109,13 +110,26 @@ _WORKER = textwrap.dedent("""
             state = state_from_numpy(pickle.load(f), "cpu")
         batch = batch_to_device(dict(np.load(os.path.join(d, "batch.npz"))), "cpu")
         state, metrics = bundle.step_fn(state, batch)
+        # one reduced dlrm-rm2 step on the rank's part, its calls recorded
+        from repro_torch.configs import get_cell
+        from repro_torch.data.cells import batch_for_cell
+        from repro_torch.dist.group_ops import recording
+        from repro_torch.dist.placement import Placement
+
+        dlrm = get_cell("dlrm-rm2", "train_batch", reduced=True, device="cpu", mesh=mesh)
+        pl = Placement(dlrm, mesh)
+        with recording() as r:
+            dlrm.step_fn(pl.local_state(dlrm.make_state()),
+                         batch_to_device(pl.local_batch(batch_for_cell(dlrm, 0)), "cpu"))
+        dlrm_calls = r.summary()
         out = {"loss": metrics["loss"].numpy(), "accuracy": metrics["accuracy"].numpy()}
         for tag, tree in (("params", state.params), ("opt_state", state.opt_state)):
             for path, v in flatten_with_path(tree):
                 out[tag + keystr(path)] = v.numpy()
         np.savez(os.path.join(d, f"port{rank}.npz"), **out)
         print(json.dumps(dict(rank=rank, rcs=rcs, logs=logs, planted=planted,
-                              digest=train.params_digest(state.params))))
+                              digest=train.params_digest(state.params),
+                              dlrm_calls=dlrm_calls)))
     finally:
         dist.destroy_process_group()
 """)
@@ -205,14 +219,15 @@ def test_one_mesh_step_matches_reference(runs):
                                        atol=1e-5 * float(np.abs(ref[k]).max()), err_msg=k)
 
 
-@pytest.mark.parametrize("arch,shape", [("dlrm-rm2", "train_batch"),
+@pytest.mark.parametrize("arch,shape", [("nemotron-4-15b", "train_4k"),
                                         ("qwen2-0.5b", "train_4k"),
-                                        ("dimenet", "molecule")])
+                                        ("olmoe-1b-7b", "train_4k")])
 def test_mesh_refuses_cells_it_cannot_run(arch, shape):
-    """Never on one device in their place, and before any group opens."""
+    """The LM cells: never on one device in their place, and before any
+    group opens."""
     import torch.distributed as dist
 
-    with pytest.raises(ValueError, match="A6.6"):
+    with pytest.raises(ValueError, match="A6.6b"):
         train.main(["--arch", arch, "--shape", shape, "--mesh", "2x2", "--device", "cpu"])
     assert not dist.is_initialized()
 
@@ -220,8 +235,12 @@ def test_mesh_refuses_cells_it_cannot_run(arch, shape):
 # ------------------------------------------------------------ the dry run
 
 
+RECSYS_ARCHS = ("xdeepfm", "dlrm-rm2", "mind", "bert4rec")
+
+
 def _counted(arch, shape):
-    return (arch == "dimenet" and shape != "molecule") or arch in EP_ARCHS
+    return (arch == "dimenet" or arch in EP_ARCHS
+            or (arch in RECSYS_ARCHS and shape == "train_batch"))
 
 
 def _table() -> dict:
@@ -235,7 +254,8 @@ def _table() -> dict:
             coll, note = dryrun.count_collectives(arch, shape, mesh)
             assert note
             if coll is None:
-                assert not _counted(arch, shape) and "A6.6" in note, (arch, shape)
+                assert not _counted(arch, shape), (arch, shape)
+                assert ("A6.6b" in note) == (arch_family(arch) == "lm"), (arch, shape, note)
                 continue
             assert _counted(arch, shape), (arch, shape)
             out[name][f"{arch}/{shape}"] = coll
@@ -243,20 +263,32 @@ def _table() -> dict:
 
 
 def test_dry_run_collectives_present_where_counted():
-    """``collectives`` for dimenet's three flat-graph cells and the eight
+    """``collectives`` for dimenet's four cells (three flat graphs and
+    ``molecule``), the four recsys train cells and the eight
     expert-parallel cells on both production meshes, null with its reason
     elsewhere; equal to ``dryrun_collectives.json``, the table
     ``chip_smoke.py`` holds the card's dry run to (rewrite it with
     ``python tests/test_torch_mesh_train.py``)."""
     table = _table()
     for name in table:
-        assert len(table[name]) == 3 + 4 * len(EP_ARCHS)
+        assert len(table[name]) == 4 + len(RECSYS_ARCHS) + 4 * len(EP_ARCHS) == 16
         for cell, coll in table[name].items():
             assert set(coll) == set(COLLECTIVE_OPS) | {"total", "wire_total", "wire", "counts"}
             arch = cell.split("/")[0]
-            if arch == "dimenet":
+            if cell == "dimenet/molecule":
+                # the species' all-gather, the loss's sums, the gradients' sum
+                assert coll["counts"] == {"all-gather": 1, "reduce-scatter": 0, "all-reduce": 2,
+                                          "all-to-all": 0, "collective-permute": 0}, cell
+            elif arch == "dimenet":
                 assert coll["counts"] == {"all-gather": 3, "reduce-scatter": 3, "all-reduce": 2,
                                           "all-to-all": 0, "collective-permute": 0}, cell
+            elif arch in RECSYS_ARCHS:
+                # each exchange: a reduce-scatter over data and an all-reduce
+                # over model forward, an all-gather over data backward
+                c = coll["counts"]
+                assert c["reduce-scatter"] >= 1 and c["all-gather"] >= 2, cell
+                assert c["all-reduce"] >= c["reduce-scatter"] + 2, cell
+                assert c["all-to-all"] == c["collective-permute"] == 0, cell
             else:
                 assert coll["counts"]["all-reduce"] > 0 and coll["total"] == coll["all-reduce"]
     assert json.loads(json.dumps(table)) == json.loads(TABLE.read_text())
@@ -273,7 +305,25 @@ def test_dryrun_cli_writes_collectives(tmp_path, capsys):
     assert dryrun.main(["--arch", "dimenet", "--shape", "molecule",
                         "--out", str(tmp_path)]) == 0
     rec = json.loads((tmp_path / "dryrun_dimenet_molecule_pod.json").read_text())
-    assert rec["collectives"] is None and "A6.6" in rec["collectives_note"]
+    assert rec["collectives"]["counts"]["all-gather"] == 1
+    assert "ShardedLookup" in rec["collectives_note"]
+    assert dryrun.main(["--arch", "qwen2-0.5b", "--shape", "train_4k",
+                        "--out", str(tmp_path)]) == 0
+    rec = json.loads((tmp_path / "dryrun_qwen2-0.5b_train_4k_pod.json").read_text())
+    assert rec["collectives"] is None and "A6.6b" in rec["collectives_note"]
+
+
+def test_dry_run_count_equals_the_calls_over_gloo(runs):
+    """The dry run's count for reduced dlrm-rm2 on a 2 × 2 mesh (the
+    rank's part on the meta device over recording groups) equals what each
+    of the 4 ranks issued running one step over gloo."""
+    want, note = dryrun.count_collectives("dlrm-rm2", "train_batch",
+                                          Mesh({"data": 2, "model": 2}), reduced=True)
+    assert want is not None and "ShardedLookup" in note
+    assert (want["counts"]["reduce-scatter"], want["counts"]["all-gather"],
+            want["counts"]["all-reduce"]) == (1, 2, 3)
+    for r in runs["ranks"]:
+        assert r["dlrm_calls"] == json.loads(json.dumps(want))
 
 
 # ------------------------------------------------------------ the tracker
