@@ -133,9 +133,10 @@ Phases:
      process) on the 16 x 16 and 2 x 16 x 16 production meshes: every
      cell's per-device bytes, built on the meta device, against the card's
      memory, and equal to the reference's (``tests/dryrun_reference_bytes
-     .json``); the collectives counted for dimenet's flat-graph cells and
-     the expert-parallel cells equal ``tests/dryrun_collectives.json``,
-     null elsewhere; nothing allocated on the card.
+     .json``); the collectives counted for dimenet's cells, the recsys and
+     LM train cells and the expert-parallel serving cells equal
+     ``tests/dryrun_collectives.json``, null elsewhere; nothing allocated
+     on the card.
   17. the mesh: 4 processes on the one card, a 2 x 2 (data, model) mesh
      over a gloo group at 127.0.0.1. Expert parallelism: one olmoe-1b-7b
      MoE layer at full width (d 2,048, 64 experts top-8, d_ff 1,024) in
@@ -158,7 +159,19 @@ Phases:
      step; then dlrm-rm2 through ``launch/train.py --mesh 2x2`` with 4-bit
      saves gathered to rank 0 (``quant_pack`` and ``chunk_hash`` there), a
      failure and a resume whose range-read rows are held to rank 0's whole
-     restore.
+     restore. Then the LM train cells (``lm_worker``), tensor- and
+     sequence-parallel at full width and sequence 4,096, depth and batch
+     cut (``LM_CELLS``): qwen2-0.5b and minicpm3-4b on 2 x 2,
+     nemotron-4-15b and dbrx-132b on 1 x 4, olmoe-1b-7b on 2 x 2, one mesh
+     step each held to rank 0's one-process loss and gradients of the same
+     parameters and batch (loss, every leaf's |gradient|, touched masks;
+     an MoE routed as the mesh routed, the routing held apart), its bytes
+     equal to the dry run's count, its collectives' share, the peak a
+     rank; then
+     qwen2-0.5b (2 layers) and olmoe-1b-7b (1 layer) through
+     ``launch/train.py --mesh 2x2`` with 4-bit saves gathered to rank 0, a
+     failure and a resume whose range-read rows (``tok_emb``'s and the
+     expert blocks') are held to rank 0's whole restore.
 
 Each path's launch counters are set to 0 just before it and read just
 after; every kernel of a path must have launched in it, and a kernel's
@@ -4297,9 +4310,9 @@ def ep_worker(argv) -> int:
     """One rank of phase 17: joins the gloo group, lays the 2 x 2 mesh,
     runs its batch shard through ``moe_ffn(dispatch="ep")`` at φ = E / k
     (nothing drops) and at the default φ, saves its outputs under ``root``,
-    runs the sharded DimeNet (``dimenet_worker``) and the row-sharded
-    recsys cells (``recsys_worker``) and prints its figures as a JSON
-    line."""
+    runs the sharded DimeNet (``dimenet_worker``), the row-sharded recsys
+    cells (``recsys_worker``) and the LM train cells (``lm_worker``) and
+    prints its figures as a JSON line."""
     import datetime
 
     import torch
@@ -4347,6 +4360,7 @@ def ep_worker(argv) -> int:
         del params, x, x_l, y
         rec["dimenet"] = dimenet_worker(mesh, root, device, reduced)
         rec["recsys"] = recsys_worker(mesh, root, device, reduced)
+        rec["lm"] = lm_worker(root, device, reduced)
         print(json.dumps(rec), flush=True)
     finally:
         dist.destroy_process_group()
@@ -4561,8 +4575,9 @@ def phase_moe_ep(root, device="cuda", reduced=False, one_process_step_s=None, ke
     DimeNet (``dimenet_worker``) on the ``minibatch_lg`` batch this process
     writes while the ranks start; its figures beside phase 10's
     one-process step (``one_process_step_s``). Then the row-sharded recsys
-    cells (``recsys_worker``; rank 0's save launches go into ``kernels``).
-    A rank that fails fails the phase."""
+    cells (``recsys_worker``) and the LM train cells (``lm_worker``); rank
+    0's save launches go into ``kernels``. A rank that fails fails the
+    phase."""
     import socket
 
     import numpy as np
@@ -4654,6 +4669,7 @@ def phase_moe_ep(root, device="cuda", reduced=False, one_process_step_s=None, ke
     _no_kernel_path(counters, "the dense and plain MoE")
     dn_ranks = [rec.pop("dimenet") for rec in ranks]
     rs_ranks = [rec.pop("recsys") for rec in ranks]
+    lm_ranks = [rec.pop("lm") for rec in ranks]
     out = dict(card=card_name(), ranks=ranks, max_rel_err=errs,
                dense_ms=[round(ms, 3) for _, ms in dense],
                tokens_dropped={f"rank {rec['rank']}": rec["default"]["dropped"]
@@ -4662,6 +4678,7 @@ def phase_moe_ep(root, device="cuda", reduced=False, one_process_step_s=None, ke
     log(f"moe ep: {json.dumps(out)}")
     out["dimenet"] = _check_dimenet_ranks(dn_ranks, one_process_step_s)
     out["recsys"] = _check_recsys_ranks(rs_ranks, kernels)
+    out["lm"] = _check_lm_ranks(lm_ranks, kernels)
     return out
 
 
@@ -4979,6 +4996,444 @@ def _check_recsys_ranks(ranks, kernels=None):
                                                           for rec in ranks],
                gather=gather, launches=r0["launcher"]["launches"])
     log(f"row-sharded recsys: {json.dumps(out)}")
+    return out
+
+
+# The LM train cells on a mesh (phase 17): the five train_4k
+# cells at full width (d, heads, ff, experts, vocabulary as published) and
+# sequence 4,096, depth and batch cut so that the phase fits the smoke's
+# time and four ranks' state the one card, each on the mesh that shards
+# what it must (PERF.md §4). One mesh step is held to one process's loss
+# and gradients of the same parameters and batch, taken in rank 0's
+# process once the ranks have freed the card: the loss within LM_LOSS_BAR,
+# every leaf's |gradient| (the square root of its first accumulator;
+# tok_emb's row-wise one gives each row's RMS) within LM_GRAD_BAR of the
+# leaf's largest (the sharded DimeNet's bf16 bar), the touched masks
+# equal; all in bf16. The MoE cells' held step drops nothing (capacity E /
+# top_k) and has no aux loss, and the one process routes each token as the
+# mesh did: routing is discontinuous, and without that (an H100 80GB HBM3
+# at 700 W, PERF.md §6) the mesh's rounding moved 403 of olmoe's 16,384
+# first-layer tokens (bf16, 2 layers, batch 4) past a near-tie, which put
+# w_out's gradient 0.28 of its largest away from one process routing on
+# its own; in f32 dbrx's layer (batch 1) still moved 1 of 4,096, which put
+# w_out's 0.32 away. Forcing can only absorb near-ties, not a wrong
+# router: in the first MoE layer, whose router's input differs only by
+# rounding, no routing probability may move by more than
+# LM_ROUTE_MOVE_BAR, and every token the mesh routes otherwise than one
+# process would must be a near-tie that rounding moved past (``_flips``);
+# in every layer at most LM_FLIP_SHARE_BAR of the tokens may route
+# otherwise. LM_FORCE_ROUTING = False (``tools/lm_mesh.py --unforced``)
+# holds the step to one process routing on its own. The launcher runs keep
+# the configs as they are.
+LM_CELLS = (("qwen2-0.5b", (2, 2), 2, 2), ("nemotron-4-15b", (1, 4), 2, 1),
+            ("olmoe-1b-7b", (2, 2), 1, 2), ("dbrx-132b", (1, 4), 1, 1),
+            ("minicpm3-4b", (2, 2), 1, 2))   # (arch, (data, model), layers, global batch)
+# the launcher runs, (arch, layers, batch): olmoe's 2 layers took 162 s with
+# their saves' 7.9 GB gathers (PERF.md §6); 1 keeps the phase in
+# the smoke's time (the CPU test restores 2 layers' experts, one range a
+# layer)
+LM_LAUNCHED = (("qwen2-0.5b", 2, 2), ("olmoe-1b-7b", 1, 2))
+LM_LOSS_BAR = 1e-2
+LM_GRAD_BAR = 0.05
+LM_ROUTE_MOVE_BAR = 2 ** -8   # a routing probability's move in the first MoE layer
+LM_FLIP_SHARE_BAR = 0.05      # of a layer's tokens routed otherwise than one process
+LM_FORCE_ROUTING = True
+LM_SEED = 13
+
+
+def _lm_held_config(arch, layers, reduced):
+    """A held step's config: ``layers`` deep (2 at most when ``reduced``);
+    MoE with no aux loss and nothing dropped."""
+    from repro_torch.configs import _module
+
+    cfg = _module(arch).make_config(reduced)
+    cfg = dataclasses.replace(cfg, n_layers=min(layers, cfg.n_layers))
+    if cfg.moe:
+        cfg = dataclasses.replace(cfg, aux_loss_coef=0.0, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    return cfg
+
+
+def _routing(layers, forced=None):
+    """Wrap the MoE router so each call notes, on the host, each token's
+    experts (sorted), its gap between the k-th and (k+1)-th routing
+    probability and (layer 0) its probabilities; with ``forced`` (a layer's
+    experts for each token, sorted) route as those say, the weights the
+    router's probabilities of them renormalized. A step's router calls are
+    its L layers' forward, then their recomputation in the backward, last
+    layer first. → (the notes of the forward's calls, unwrap)."""
+    import torch
+
+    from repro_torch.models import layers as m_layers
+
+    seen, router = [], m_layers._moe_router
+
+    def noted(xf, w, top_k):
+        probs, weights, ids = router(xf, w, top_k)
+        c = len(seen)
+        if c < layers:
+            top = torch.topk(probs.detach(), top_k + 1, dim=-1).values
+            seen.append((ids.detach().sort(dim=-1).values.to("cpu", torch.int16),
+                         (top[:, top_k - 1] - top[:, top_k]).to("cpu"),
+                         probs.detach().to("cpu") if c == 0 else None))
+        else:
+            seen.append(None)
+        if forced is not None:
+            ids = forced[c if c < layers else 2 * layers - 1 - c].to(probs.device, torch.int64)
+            weights = torch.gather(probs, 1, ids)
+            weights = weights / torch.sum(weights, dim=-1, keepdim=True)
+        return probs, weights, ids
+
+    m_layers._moe_router = noted
+    return seen, lambda: setattr(m_layers, "_moe_router", router)
+
+
+def _flips(one, mesh_routes, layers):
+    """Per layer, the share of the global batch's tokens the mesh routed to
+    other experts than one process would have (its own router's choice);
+    of layer 0, the largest change of a routing probability between the
+    two, and the largest ratio of a token routed otherwise's gap between
+    its k-th and (k+1)-th probability (one process's) to twice the largest
+    change of its probabilities: there the router's input differs only by
+    rounding, so a token routes otherwise only where that rounding moved
+    two probabilities past each other (a ratio of at most 1); later layers
+    inherit its changed state. → (counts, shares, move, ratio)."""
+    counts, shares, worst = [], [], 0.0
+    moved = (one[0][2] - mesh_routes[0][2]).abs().amax(dim=-1)
+    for l in range(layers):
+        diff = (one[l][0] != mesh_routes[l][0]).any(dim=-1)
+        counts.append(int(diff.sum()))
+        shares.append(counts[-1] / diff.numel())
+        if l == 0 and diff.any():
+            worst = float((one[0][1] / (2 * moved))[diff].max())
+    return counts, shares, float(moved.max()), worst
+
+
+def _mesh_routes(routes, mesh, layers):
+    """The global batch's routing on the mesh, on rank 0: each data
+    shard's (its ``model`` rank 0's record) in data order; None elsewhere."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    every = [None] * mesh.size
+    dist.all_gather_object(every, [(ids.numpy(), gaps.numpy(),
+                                    None if probs is None else probs.numpy())
+                                   for ids, gaps, probs in routes[:layers]], group=mesh.group)
+    if dist.get_rank(mesh.group) != 0:
+        return None
+    shards = [rec for r, rec in enumerate(every)
+              if not dict(zip(mesh.shape, np.unravel_index(
+                  r, tuple(mesh.shape.values())))).get("model", 0)]
+    return [tuple(None if shards[0][l][m] is None
+                  else torch.from_numpy(np.concatenate([sh[l][m] for sh in shards]))
+                  for m in range(3)) for l in range(layers)]
+
+
+def _lm_one_process(one, cfg, dev, folder, sync, forced=None):
+    """One process's loss and gradients of the whole parameters (the step
+    before its update, whose accumulators would hold three more copies:
+    nemotron's and dbrx's do not fit the card so) on ``one``'s batch 0,
+    each MoE layer routed as ``forced`` says where given: each leaf's
+    |gradient| (a table's row RMS, as its row-wise accumulator gives) and
+    each touched mask written to ``folder`` as ``.npy`` (bf16 bits as
+    int16). → (ms, loss, its own routing's notes)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.cells import batch_for_cell
+    from repro_torch.models import transformer as m_tf
+    from repro_torch.train.loop import batch_to_device
+    from repro_torch.tree import flatten_with_path, keystr
+
+    gen = torch.Generator(device=one.device)
+    gen.manual_seed(LM_SEED)
+    params = one.init(gen)
+    paths = [p for p, _ in flatten_with_path(params)]
+    leaves = [leaf.requires_grad_(True) for _, leaf in flatten_with_path(params)]
+    batch = batch_to_device(batch_for_cell(one, 0), dev)
+    routes, unwrap = _routing(cfg.n_layers, forced)
+    try:
+        sync()
+        t0 = time.monotonic()
+        loss, aux = m_tf.train_loss(params, batch, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        sync()
+    finally:
+        unwrap()
+    ms = (time.monotonic() - t0) * 1e3
+    del params, leaves, batch
+    with torch.no_grad():
+        for p, g in zip(paths, grads):
+            g = g.square().mean(dim=1).sqrt() if p[0] == "tables" else g.abs()
+            np.save(os.path.join(folder, "grad" + keystr(p) + ".npy"),
+                    g.to(torch.bfloat16).view(torch.int16).cpu().numpy())
+        for name, m in aux["touched"].items():
+            np.save(os.path.join(folder, f"touched{name}.npy"), m.cpu().numpy())
+    return ms, float(loss), routes[:cfg.n_layers]
+
+
+def _lm_held_blocks(grads, touched, pl, folder):
+    """This rank's blocks (|gradient| as bf16 and touched masks, on the
+    host) against one process's, read from ``folder`` (each file
+    memory-mapped, the rank's block sliced): per leaf, the largest
+    |Δ|gradient|| and the largest one-process |gradient| of the block; per
+    touched mask, whether the block is equal."""
+    import numpy as np
+    import torch
+
+    from repro_torch.dist.placement import shard_bounds
+    from repro_torch.tree import flatten_with_path, keystr
+
+    specs = {keystr(p): s for p, s in flatten_with_path(pl.specs.opt_state)}
+    out = {}
+    for key, got in grads.items():
+        want = np.load(os.path.join(folder, "grad" + key + ".npy"), mmap_mode="r")
+        block = tuple(slice(lo, hi) for lo, hi in shard_bounds(want.shape, specs[key], pl.mesh))
+        want = torch.from_numpy(np.ascontiguousarray(want[block])).view(torch.bfloat16)
+        want = want.to(torch.float32)
+        out[key] = (float((got.to(torch.float32) - want).abs().max()), float(want.max()))
+    same = {}
+    for name, mask in touched.items():
+        want = np.load(os.path.join(folder, f"touched{name}.npy"), mmap_mode="r")
+        block = tuple(slice(lo, hi) for lo, hi in
+                      shard_bounds(want.shape, pl.specs.touched[name], pl.mesh))
+        same[name] = bool(np.array_equal(mask, want[block]))
+    return out, same
+
+
+def _lm_cell(arch, mesh, layers, gb, root, device, dev, reduced) -> dict:
+    """One cell of ``lm_worker``: every rank makes its blocks leaf by leaf
+    (``Placement.init_state``: one whole leaf transient at a time) and
+    steps them on the mesh (recorded, its collectives timed; the update in
+    place), keeps its |gradient| blocks and masks on its host and frees the
+    card; rank 0 then takes one process's loss and gradients of the same
+    parameters and batch (``_lm_one_process``, an MoE routed as the mesh
+    routed); each rank holds its blocks to those (``_lm_held_blocks``) and
+    rank 0 gathers the verdicts."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs._families import lm_cell
+    from repro_torch.data.cells import batch_for_cell
+    from repro_torch.dist.group_ops import recording
+    from repro_torch.dist.placement import Placement
+    from repro_torch.launch import dryrun, train
+    from repro_torch.launch.mesh import Mesh, make_recording_mesh
+    from repro_torch.train.loop import batch_to_device
+    from repro_torch.tree import flatten_with_path, keystr
+
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    cfg = _lm_held_config(arch, layers, reduced)
+    gb = 4 if reduced else gb
+    rank, L = dist.get_rank(), cfg.n_layers
+    folder = os.path.join(root, f"lm-held-{arch}")
+    out = dict(layers=L, batch=gb, mesh=list(mesh.shape.values()))
+    b = lm_cell(arch, cfg, "train_4k", reduced, dev, gb, mesh=mesh)
+    pl = Placement(b, mesh)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    state = pl.init_state(LM_SEED)
+    if cuda:
+        torch.cuda.empty_cache()
+    local = batch_to_device(pl.local_batch(batch_for_cell(b, 0)), dev)
+    routes, unwrap = _routing(L)
+    dist.barrier()
+    spent, unwrap_timed = _timed_collectives()
+    try:
+        sync()
+        t0 = time.monotonic()
+        with recording() as rec:
+            state, metrics = b.step_fn(state, local)
+        sync()
+        out["mesh_ms"] = (time.monotonic() - t0) * 1e3
+    finally:
+        unwrap_timed()
+        unwrap()
+    out.update(collectives_ms=spent[0] * 1e3, loss=float(metrics["loss"]),
+               replicated=train.params_digest(
+                   [leaf for path, leaf in flatten_with_path(state.params)
+                    if pl.param_is_replicated(path)]))
+    if cuda:
+        out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    got = rec.summary()
+    meta = lm_cell(arch, cfg, "train_4k", reduced, "meta", gb,
+                   mesh=make_recording_mesh(Mesh(dict(mesh.shape))))
+    count = dryrun.lm_step_collectives(meta, meta.rules.mesh, reduced, gb)
+    out.update(bytes=got["total"], wire_bytes=got["wire_total"], counts=got["counts"],
+               count_equal=(got["counts"] == count["counts"] and got["total"] == count["total"]
+                            and abs(got["wire_total"] - count["wire_total"])
+                            <= 1e-9 * count["wire_total"]))
+    with torch.no_grad():
+        grads = {keystr(p): acc.sqrt().to(torch.bfloat16).cpu()
+                 for p, acc in flatten_with_path(state.opt_state)}
+    touched = {k: m.cpu().numpy() for k, m in state.touched.items()}
+    del state, local, metrics
+    if cuda:
+        torch.cuda.empty_cache()
+    mesh_routes = _mesh_routes(routes, mesh, L) if cfg.moe else None
+    dist.barrier()
+    if rank == 0:
+        os.makedirs(folder, exist_ok=True)
+        one = lm_cell(arch, cfg, "train_4k", reduced, dev, gb)
+        forced = ([ids for ids, _, _ in mesh_routes] if cfg.moe and LM_FORCE_ROUTING
+                  else None)
+        out["one_process_ms"], out["one_loss"], own = _lm_one_process(
+            one, cfg, dev, folder, sync, forced)
+        if cfg.moe:
+            out["flips"], out["flip_share"], out["route_move0"], out["flip_ratio0"] = _flips(
+                own, mesh_routes, L)
+            out["forced"] = LM_FORCE_ROUTING
+            out["margin"] = min(float(g.min()) for _, g, _ in own)
+        if cuda:
+            torch.cuda.empty_cache()
+    dist.barrier()
+    held = [None] * mesh.size
+    dist.all_gather_object(held, _lm_held_blocks(grads, touched, pl, folder), group=mesh.group)
+    if rank == 0:
+        worst = {k: max(g[k][0] for g, _ in held) / max(max(g[k][1] for g, _ in held), 1e-30)
+                 for k in held[0][0]}
+        leaf = max(worst, key=worst.get)
+        out.update(loss_err=abs(out["loss"] - out["one_loss"]), worst_leaf=leaf,
+                   worst_grad=worst[leaf],
+                   touched_equal=all(all(t.values()) for _, t in held))
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(folder, ignore_errors=True)
+    return out
+
+
+def lm_worker(root, device, reduced) -> dict:
+    """One rank's LM train cells (phase 17): each of ``LM_CELLS`` through
+    ``_lm_cell`` on its mesh (2 x 2 or 1 x 4 over this process's group);
+    then ``launch.train.main --mesh 2x2`` for each of ``LM_LAUNCHED`` (its
+    depth and batch cut), 3 steps, a 4-bit save at 2 gathered to rank 0
+    (which saves through ``quant_pack`` and ``chunk_hash``), a failure
+    before step 3, the rerun resuming from the one chain with every rank's
+    range-read rows (``tok_emb``'s and the expert blocks') held to rank
+    0's whole restore and training step 3 (one save: the smoke took
+    1,121.7 s with two)."""
+    import io
+    from contextlib import redirect_stdout
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+
+    rank = dist.get_rank()
+    dev = device if device == "cpu" else f"cuda:{rank % torch.cuda.device_count()}"
+    if device == "cuda":
+        torch.cuda.set_device(dev)
+        torch.empty(1, device=dev)  # the allocator's statistics exist from here
+    meshes = {(2, 2): make_host_mesh(2, 2), (1, 4): make_host_mesh(1, 4)}
+    out = {}
+    for arch, shape, layers, gb in LM_CELLS:
+        t0 = time.monotonic()
+        out[arch] = _lm_cell(arch, meshes[shape], layers, gb, root, device, dev, reduced)
+        out[arch]["seconds"] = time.monotonic() - t0
+        print(f"rank {rank}: lm {arch} {json.dumps(out[arch])}", file=sys.stderr, flush=True)
+    counters = _kernel_counters()
+    out["launcher"] = {}
+    for arch, layers, gb in LM_LAUNCHED:
+        for c in counters.values():
+            c.reset()
+        cmd = ["--arch", arch, "--shape", "train_4k", "--mesh", "2x2", "--steps", "3",
+               "--interval", "2", "--bits", "4", "--device", device,
+               "--ckpt-dir", os.path.join(root, f"{arch}-mesh-ckpt")]
+        if not reduced:
+            cmd += ["--full-config", "--layers", str(layers), "--global-batch", str(gb)]
+        rcs, logs = [], []
+        t0 = time.monotonic()
+        for extra in (["--fail-at", "2"], []):
+            buf = io.StringIO()
+            with redirect_stdout(buf):
+                rcs.append(train.main(cmd + extra))
+            logs.append(buf.getvalue())
+        out["launcher"][arch] = dict(rcs=rcs, seconds=time.monotonic() - t0,
+                                     log=logs if rank == 0 else None,
+                                     launches={k: c.count for k, c in counters.items()})
+        print(f"rank {rank}: lm launcher {arch} {rcs} {time.monotonic() - t0:.1f} s",
+              file=sys.stderr, flush=True)
+    return out
+
+
+def _check_lm_ranks(ranks, kernels=None):
+    """Phase 17's checks of the ranks' LM records, and its log line; rank
+    0's launches of the saves' kernels go into the kernel table."""
+    r0 = ranks[0]
+    cells = {}
+    for arch, shape, *_ in LM_CELLS:
+        c = r0[arch]
+        check(c["loss_err"] <= LM_LOSS_BAR, f"lm {arch}: mesh loss {c['loss']} vs one "
+              f"process's {c['one_loss']}")
+        check(c["worst_grad"] <= LM_GRAD_BAR, f"lm {arch}: |gradient| within {LM_GRAD_BAR} "
+              f"of each leaf's largest ({c['worst_leaf']}: {c['worst_grad']:.3e})")
+        check(c["touched_equal"], f"lm {arch}: touched masks equal to one process's")
+        for r, rec in enumerate(ranks):
+            check(rec[arch]["count_equal"], f"lm {arch} rank {r}: one step's collectives "
+                  f"equal the dry run's count on {shape}: {rec[arch]['counts']}")
+            check(rec[arch]["replicated"] == c["replicated"] and rec[arch]["bytes"] == c["bytes"],
+                  f"lm {arch} rank {r}: replicated parameters and bytes as rank 0's")
+        if "flips" in c:
+            check(c["forced"], f"lm {arch}: the one-process step routed as the mesh did")
+            check(c["route_move0"] <= LM_ROUTE_MOVE_BAR, f"lm {arch}: the first layer's "
+                  f"routing probabilities within {LM_ROUTE_MOVE_BAR} of one process's "
+                  f"({c['route_move0']:.3e})")
+            check(c["flip_ratio0"] <= 1.0, f"lm {arch}: each token of the first layer the "
+                  f"mesh routed otherwise than one process would is a near-tie its rounding "
+                  f"moved past (gap over twice the move {c['flip_ratio0']:.3f} <= 1; by "
+                  f"layer {c['flips']})")
+            check(max(c["flip_share"]) <= LM_FLIP_SHARE_BAR, f"lm {arch}: at most "
+                  f"{LM_FLIP_SHARE_BAR} of each layer's tokens routed otherwise than one "
+                  f"process would ({c['flip_share']})")
+        cells[arch] = dict(
+            mesh="x".join(str(n) for n in c["mesh"]), layers=c["layers"], batch=c["batch"],
+            mesh_step_ms_by_rank=[round(rec[arch]["mesh_ms"], 1) for rec in ranks],
+            one_process_ms=round(c["one_process_ms"], 1),
+            collectives_share=[round(rec[arch]["collectives_ms"] / rec[arch]["mesh_ms"], 3)
+                               for rec in ranks],
+            bytes_a_rank=c["bytes"], wire_bytes_a_rank=c["wire_bytes"], counts=c["counts"],
+            loss=[c["loss"], c["one_loss"]], worst_leaf=c["worst_leaf"],
+            routing_margin=c.get("margin"), flips=c.get("flips"),
+            flip_share=c.get("flip_share"), route_move0=c.get("route_move0"),
+            flip_ratio0=c.get("flip_ratio0"),
+            worst_grad=c["worst_grad"],
+            peak_gb_by_rank=[round(rec[arch].get("peak_gb", 0.0), 2) for rec in ranks],
+            seconds=round(c["seconds"], 1))
+    launched = {}
+    for arch, _, _ in LM_LAUNCHED:
+        for r, rec in enumerate(ranks):
+            la = rec["launcher"][arch]
+            check(la["rcs"] == [2, 0], f"rank {r}: {arch} --mesh fail then resume {la['rcs']}")
+            saves = {k: la["launches"][k] for k in ("quant_pack", "chunk_hash")}
+            others = {k: v for k, v in la["launches"].items() if k not in saves}
+            check(not any(others.values()), f"rank {r}: {arch}: launches of other kernels: "
+                  f"{others}")
+            check(all(saves.values()) if r == 0 else not any(saves.values()),
+                  f"rank {r}: {arch}: launches of the saves' kernels on rank 0 alone: {saves}")
+        second = r0["launcher"][arch]["log"][1]
+        check("resumed from checkpoint at step 2" in second
+              and "restored rows of 4 ranks bit-equal to the one-process restore" in second
+              and "parameters bit-equal after every step and the restore" in second,
+              f"{arch}: the rerun resumed from the one chain: {second[-800:]}")
+        if kernels is not None:
+            record_launches(kernels, f"mesh {arch} saves",
+                            {k: r0["launcher"][arch]["launches"][k]
+                             for k in ("quant_pack", "chunk_hash")})
+        launched[arch] = dict(
+            seconds=[round(rec["launcher"][arch]["seconds"], 1) for rec in ranks],
+            launches=r0["launcher"][arch]["launches"])
+    out = dict(card=card_name(), cells=cells, launcher=launched)
+    log(f"lm mesh: {json.dumps(out)}")
     return out
 
 

@@ -27,6 +27,7 @@ reference's arrays are on a device.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -70,6 +71,9 @@ class CellBundle:
     param_axes_fn: Callable         # (path_str, shape) -> logical axes tuple
     rules: ShardingRules
     input_pspecs: Any               # {name: PartitionSpec} (cache: a dict or None)
+    # (generator, keep) -> params, each leaf passed to keep(path, leaf) as
+    # it is made (dist.placement.Placement.init_state); None: init whole
+    init_kept: Optional[Callable] = None
 
     def make_state(self, seed: int = 0) -> TrainState:
         """A fresh TrainState on the bundle's device, params drawn from a
@@ -239,9 +243,10 @@ def recsys_cell(arch: str, cfg, shape: str, reduced: bool = False,
         # a rank of the mesh: its data shard of the batch, its rows of the
         # tables (models.embedding.ShardedLookup); the replicated leaves'
         # gradients summed over the batch's axes
-        grads = dict(grad_group=mesh.group_for(_batch_axes(rules, B, arch, shape)),
-                     summed=_replicated(lambda gen: mod.init_params(gen, cfg), rules,
-                                        recsys_param_axes))
+        group = mesh.group_for(_batch_axes(rules, B, arch, shape))
+        replicated = _replicated(lambda gen: mod.init_params(gen, cfg), rules,
+                                 recsys_param_axes)
+        grads = dict(grad_groups=lambda path: group if replicated(path) else None)
     if kind == "train" and arch == "dlrm-rm2":
         # the sparse embedding update (see models/dlrm.py)
         step_fn = m_dlrm.make_sparse_train_step(cfg, adagrad(0.01), rules=rules)
@@ -337,6 +342,49 @@ def _lm_cache_pspec(cfg: m_tf.TransformerConfig, rules: ShardingRules,
                 v=P(None, batch_ax, seq_ax, None, None))
 
 
+# the replicated leaves that sit on the kv side of a head-sharded attention
+# (each rank's cotangent comes from its own q heads alone)
+_KV_SIDE = ("['wk']", "['wv']", "['bk']", "['bv']", "['w_dq']", "['q_norm']",
+            "['w_dkv']", "['kv_norm']", "['w_kpe']")
+
+
+def lm_grad_axes(path: str, split: bool, tp) -> Optional[Tuple[str, ...]]:
+    """The mesh axes an LM leaf's gradient sums over in the tensor-parallel
+    step (``dist.tensor_parallel``), for the leaf at ``path`` whose spec
+    names a mesh axis where ``split``, on a rank laid out as ``tp``.
+
+    One global loss, every rank holding it; a rank's gradient of a leaf is
+    its part of the global gradient, and the parts sum over the ranks that
+    hold the same block of the leaf and computed other parts:
+      * ``tok_emb`` row-sharded: none (every data shard's ids reach the
+        rank's rows through the exchange);
+      * a leaf split over ``model`` (``wq``, ``bq``, ``wo``; ``wk``,
+        ``wv``, ``bk``, ``bv`` where the kv heads shard; ``w1``, ``wg``,
+        ``w2``; MLA's ``w_uq``, ``w_uk``, ``w_uv``, ``w_o``; the experts;
+        ``w_out``): ``data``;
+      * a replicated leaf: ``data``, and ``model`` too where the ``model``
+        ranks see different parts of its cotangent: every replicated leaf
+        under sequence parallelism (each rank's own positions: the norm
+        gains ``ln1``, ``ln2``, ``final_norm``, a replicated ``tok_emb``,
+        ``w_out``, attention or FFN weights that do not shard); the kv
+        side of a head-sharded attention (``wk``, ``wv``, ``bk``, ``bv``
+        where the kv heads do not shard; MLA's ``w_dq``, ``q_norm``,
+        ``w_dkv``, ``kv_norm``, ``w_kpe``: each rank's own heads); the
+        router under expert parallelism (each rank's own experts, and the
+        aux loss's cotangent passed through a sum over the world).
+    Without sequence parallelism the residual is the same on every
+    ``model`` rank and so is a replicated leaf's part, but for the kv side
+    and the router."""
+    data = tuple(tp.rules.axis_map["batch"])
+    if "tok_emb" in path and split:
+        return None
+    if split:
+        return data
+    spread = (tp.sp or (tp.heads and any(k in path for k in _KV_SIDE))
+              or (tp.experts and "router" in path))
+    return data + ("model",) if spread else data
+
+
 def lm_cell(arch: str, cfg: m_tf.TransformerConfig, shape: str,
             reduced: bool = False, device="cuda",
             global_batch: Optional[int] = None, mesh=None) -> CellBundle:
@@ -346,7 +394,13 @@ def lm_cell(arch: str, cfg: m_tf.TransformerConfig, shape: str,
     token against a cache made by ``init_cache``). ``global_batch``
     replaces the shape's batch (the card cannot hold every full batch);
     the sequence length stays. Under a ``mesh`` the rules are the LM's
-    (pure FSDP for a config that asks for it, at full train shapes)."""
+    (pure FSDP for a config that asks for it, at full train shapes). On a
+    mesh that carries a process group a train cell's step is one rank's
+    tensor-parallel step (``models.transformer.train_loss``), each leaf's
+    gradient summed over ``lm_grad_axes``' group; a pure-FSDP config
+    raises there (the port has no such step)."""
+    from ..dist.tensor_parallel import tensor_parallel
+
     spec = (S.LM_SHAPES_REDUCED if reduced else S.LM_SHAPES)[shape]
     kind = spec["kind"]
     dev = resolve_device(device)
@@ -360,9 +414,26 @@ def lm_cell(arch: str, cfg: m_tf.TransformerConfig, shape: str,
     tokens_p = rules.pspec("batch", None, dims=(gb, seq))
     if kind == "train":
         n_micro = 4 if (not reduced and gb >= 64) else 1
+        grads, sharded = {}, getattr(mesh, "has_group", False)
+        if sharded:
+            _batch_axes(rules, gb // n_micro, arch, shape)
+            tp = tensor_parallel(rules, cfg, seq)
+            replicated = _replicated(lambda gen: m_tf.init_params(gen, cfg), rules,
+                                     lm_param_axes)
+
+            def group_of(path):
+                axes = lm_grad_axes(keystr(path), not replicated(path), tp)
+                if not axes:
+                    return None
+                group = mesh.group_for(axes)
+                return group if math.prod(mesh.shape[a] for a in axes) > 1 else None
+
+            # the update in place: four ranks of a full-width cell on one
+            # card hold three copies of their blocks, not six
+            grads = dict(grad_groups=group_of, in_place=True)
         step_fn = make_train_step(
-            lambda params, batch: m_tf.train_loss(params, batch, cfg, rules),
-            optimizer, n_micro=n_micro)
+            lambda params, batch: m_tf.train_loss(params, batch, cfg, rules, sharded),
+            optimizer, n_micro=n_micro, **grads)
         inputs = dict(tokens=InputSpec((gb, seq), tok), labels=InputSpec((gb, seq), tok))
         input_pspecs = dict(tokens=tokens_p, labels=tokens_p)
         flops = 6.0 * cfg.active_param_count * gb * seq
@@ -396,7 +467,8 @@ def lm_cell(arch: str, cfg: m_tf.TransformerConfig, shape: str,
         init=lambda gen: m_tf.init_params(gen, cfg), step_fn=step_fn,
         make_inputs=lambda: dict(inputs), tracked=tracked, optimizer=optimizer,
         model_flops=flops, param_axes_fn=lm_param_axes, rules=rules,
-        input_pspecs=input_pspecs)
+        input_pspecs=input_pspecs,
+        init_kept=lambda gen, keep: m_tf.init_params(gen, cfg, keep))
 
 
 # =====================================================================
@@ -500,9 +572,10 @@ def gnn_cell(arch: str, base_cfg: m_dimenet.DimeNetConfig, shape: str,
         flops = 3.0 * dimenet_flops(cfg, N, E, T)
     tracked = m_dimenet.tracked_specs(cfg)
     optimizer = split_optimizer(rowwise_adagrad(0.01), adagrad(0.01))
+    group = _gnn_grad_group(inputs, cfg, rules, shape)
     step_fn = make_train_step(
         lambda params, batch: m_dimenet.train_loss(params, batch, cfg, rules), optimizer,
-        grad_group=_gnn_grad_group(inputs, cfg, rules, shape))
+        grad_groups=None if group is None else lambda path: group)
     return CellBundle(
         arch=arch, shape=shape, kind="train", cfg=cfg, device=dev,
         init=lambda gen: m_dimenet.init_params(gen, cfg), step_fn=step_fn,

@@ -1145,7 +1145,8 @@ class CheckNRunManager:
 
     def restore_part(self, host: int, step: Optional[int] = None,
                      num_hosts: Optional[int] = None,
-                     whole: Iterable[str] = ()) -> RestoredState:
+                     whole: Iterable[str] = (),
+                     ranges: Optional[Dict[str, List[List[int]]]] = None) -> RestoredState:
         """Lazily range-read ONE host's row-shard of a checkpoint: only the
         chunks whose row bounds intersect the host's target ranges are
         fetched (plus the final step's dense params, which are global).
@@ -1174,7 +1175,12 @@ class CheckNRunManager:
         ``host_<h>/`` namespace, carry everything the planner needs.
 
         The tables named in ``whole`` are read whole, every row, whatever
-        the host (a rank of a mesh that holds them replicated).
+        the host (a rank of a mesh that holds them replicated). The tables
+        named in ``ranges`` are read as their ``[lo, hi)`` ranges, in order,
+        the rows concatenated (a rank of a mesh whose block of an expert
+        block is one range a layer): one plan a range, the dense params
+        read once; ``extra["shard"]["row_ranges"]`` then records every
+        table's ranges, and ``row_range`` only the tables read as one.
 
         A reader-side operation: does NOT resync the manager's policy or
         touched-row bookkeeping (use :meth:`restore`, or the partial-
@@ -1211,46 +1217,74 @@ class CheckNRunManager:
         for name in whole:
             if name in targets:
                 targets[name] = [0, final.tables[name].rows]
-        try:
-            plan = rr.plan_ranges(chain, targets, check_coverage=True)
-        except rr.RangeCoverageError as e:
-            raise PartialRecoveryError(
-                host, step, "missing-part", str(e)) from e
-        self._check_shard_witness(chain, targets, host, step)
-        resharded = any(n != tgt for n in plan.source_layouts)
+        more = {name: [list(r) for r in rs] for name, rs in (ranges or {}).items()
+                if name in targets}
+        for name, rs in more.items():
+            targets[name] = rs[0]
+        passes = [targets] + [
+            {name: rs[k] for name, rs in more.items() if k < len(rs)}
+            for k in range(1, max((len(rs) for rs in more.values()), default=1))]
 
         tables: Dict[str, np.ndarray] = {}
         row_state: Dict[str, Dict[str, np.ndarray]] = {}
-        ranges: Dict[str, List[int]] = {}
-
-        def alloc(name: str, rec: mf.TableRecord):
-            # shard-sized scratch: planned chunks are clip-applied to rows
-            # in the target range, scattered at offset -lo — memory stays
-            # O(shard), not O(table)
-            lo, hi = targets.get(name, [0, rec.rows])
-            ranges[name] = [lo, hi]
-            return np.zeros((hi - lo, rec.dim), np.float32), lo
-
+        ranges = {}
         dense: Dict[str, np.ndarray] = {}
-        try:
-            stats = self._replay_plan(plan, tables, row_state, dense, alloc)
-        except ChunkCorruptionError as e:
-            self._count(corruption_errors_total=1)
-            raise PartialRecoveryError(
-                host, step, "corrupt-chunk", str(e)) from e
-        except (KeyError, FileNotFoundError) as e:
-            # a chunk blob the manifest references is gone (GC race,
-            # partial quarantine) — unrecoverable from this shard alone
-            raise PartialRecoveryError(
-                host, step, "corrupt-chunk",
-                f"shard chunk blob unreadable: {e}") from e
+        stats, rows_replayed = None, 0
+        for k, tg in enumerate(passes):
+            try:
+                plan = rr.plan_ranges(chain, tg, check_coverage=True)
+            except rr.RangeCoverageError as e:
+                raise PartialRecoveryError(
+                    host, step, "missing-part", str(e)) from e
+            self._check_shard_witness(chain, tg, host, step)
+            rows_replayed += sum(pr.chunk.n_rows for pr in plan.reads)
+            got_t: Dict[str, np.ndarray] = {}
+            got_rs: Dict[str, Dict[str, np.ndarray]] = {}
+
+            def alloc(name: str, rec: mf.TableRecord, tg=tg):
+                # shard-sized scratch: planned chunks are clip-applied to rows
+                # in the target range, scattered at offset -lo — memory stays
+                # O(shard), not O(table)
+                lo, hi = tg.get(name, [0, rec.rows])
+                ranges.setdefault(name, []).append([lo, hi])
+                return np.zeros((hi - lo, rec.dim), np.float32), lo
+
+            try:
+                st = self._replay_plan(plan, got_t, got_rs, dense if k == 0 else None,
+                                       alloc)
+            except ChunkCorruptionError as e:
+                self._count(corruption_errors_total=1)
+                raise PartialRecoveryError(
+                    host, step, "corrupt-chunk", str(e)) from e
+            except (KeyError, FileNotFoundError) as e:
+                # a chunk blob the manifest references is gone (GC race,
+                # partial quarantine) — unrecoverable from this shard alone
+                raise PartialRecoveryError(
+                    host, step, "corrupt-chunk",
+                    f"shard chunk blob unreadable: {e}") from e
+            if k == 0:
+                stats, first = st, plan
+            else:
+                stats = dict(stats, items=stats["items"] + st["items"],
+                             payload_bytes=stats["payload_bytes"] + st["payload_bytes"],
+                             wall_s=stats["wall_s"] + st["wall_s"])
+            for name, arr in got_t.items():
+                tables[name] = (arr if name not in tables
+                                else np.concatenate([tables[name], arr]))
+                have = row_state.setdefault(name, {})
+                for a, v in got_rs[name].items():
+                    have[a] = v if a not in have else np.concatenate([have[a], v])
+        plan = first
+        resharded = any(n != tgt for n in plan.source_layouts)
         extra = dict(final.extra)
         extra["shard"] = {"host": host, "num_hosts": tgt,
-                          "row_range": ranges, "resharded": resharded,
+                          "row_range": {n: r[0] for n, r in ranges.items() if len(r) == 1},
+                          "resharded": resharded,
                           "source_num_hosts": src_n,
                           "source_layouts": [int(n)
                                              for n in plan.source_layouts]}
-        rows_replayed = sum(pr.chunk.n_rows for pr in plan.reads)
+        if more:
+            extra["shard"]["row_ranges"] = ranges
         kind_count = (dict(recoveries_resharded_total=1) if resharded
                       else dict(recoveries_partial_total=1))
         self._count(restore_bytes_total=int(stats.get("payload_bytes", 0)),
@@ -1362,7 +1396,7 @@ class CheckNRunManager:
         row bound straddles a target boundary are clipped in the decode
         stage (``range_reader.clip_decoded``) so only intersecting rows
         are scattered. The final manifest's dense params ride the same
-        pipeline."""
+        pipeline (none when ``dense`` is None)."""
         cfg = self.config
         final_man = plan.chain[-1]
         offsets: Dict[str, int] = {}
@@ -1409,7 +1443,7 @@ class CheckNRunManager:
                     functools.partial(self._apply_decoded, tables[name],
                                       row_state[name], rec, ch,
                                       offsets[name]))
-            for key_name, drec in final_man.dense.items():
+            for key_name, drec in (final_man.dense.items() if dense is not None else ()):
                 pipe.submit(
                     functools.partial(self.store.get, drec.key),
                     functools.partial(self._decode_dense, final_man.step,

@@ -7,13 +7,19 @@ True)``, ``psum_scatter(tiled=True)``, ``psum``), as ``torch.autograd``
 functions over a ``torch.distributed`` group:
   * the backward of an all-gather is a reduce-scatter (sum) of the
     cotangent, and the backward of a reduce-scatter an all-gather, as JAX
-    transposes them;
+    transposes them; an all-gather may instead take ``backward="split"``:
+    this rank's slice of the cotangent, where every rank computes one
+    function of the gathered tensor and so holds its whole cotangent;
   * an all-reduce's backward is chosen by the caller: ``"sum"`` all-reduces
     the cotangent (``torch.distributed.nn``'s rule: each rank's loss is its
     own and the loss meant is their mean), ``"identity"`` passes it
     through (the result is one replicated value, every rank computes the
     same loss from it, and a replicated parameter's gradient is the sum of
-    the ranks' gradients).
+    the ranks' gradients);
+  * ``copy_to`` is the identity forward and an all-reduce of the cotangent
+    backward: the entry of a region whose ranks each compute a part
+    (Megatron's "copy to the tensor-parallel region"), whose cotangents
+    each rank's input needs summed.
 They call the list forms of ``torch.distributed.all_gather`` and
 ``reduce_scatter`` (the ``*_tensor`` forms are deprecated in newer
 releases), which gloo runs on CPU and CUDA tensors, f32 and bf16, on
@@ -192,13 +198,16 @@ def _sum(x: torch.Tensor, group) -> torch.Tensor:
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, dim):
-        ctx.group, ctx.dim = group, dim
+    def forward(ctx, x, group, dim, backward):
+        ctx.group, ctx.dim, ctx.backward = group, dim, backward
         return _gather(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return _scatter(g, ctx.group, ctx.dim), None, None
+        if ctx.backward == "split":
+            n = group_size(ctx.group)
+            return g.chunk(n, dim=ctx.dim)[group_rank(ctx.group)].contiguous(), None, None, None
+        return _scatter(g, ctx.group, ctx.dim), None, None, None
 
 
 class _ReduceScatter(torch.autograd.Function):
@@ -225,10 +234,36 @@ class _AllReduce(torch.autograd.Function):
         return _sum(g, ctx.group), None, None
 
 
-def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group), None
+
+
+def all_gather(x: torch.Tensor, group, dim: int = 0, backward: str = "sum") -> torch.Tensor:
     """The ranks' ``x`` concatenated along ``dim`` in group-rank order
-    (``all_gather(tiled=True)``). Backward: a reduce-scatter (sum)."""
-    return _AllGather.apply(x, group, dim)
+    (``all_gather(tiled=True)``). Backward: ``"sum"``, a reduce-scatter of
+    the cotangent; ``"split"``, this rank's slice of it (see the module's
+    docstring). A tensor that needs no gradient takes one call."""
+    if backward not in ("sum", "split"):
+        raise ValueError(f"unknown all-gather backward {backward!r}")
+    if not x.requires_grad:
+        return _gather(x, group, dim)
+    return _AllGather.apply(x, group, dim, backward)
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` itself; backward, the ranks' cotangents summed over ``group``
+    (one all-reduce, recorded). A tensor that needs no gradient passes
+    through without a call."""
+    if not x.requires_grad:
+        return x
+    return _CopyTo.apply(x, group)
 
 
 def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
@@ -334,5 +369,5 @@ def sum_owners(x: torch.Tensor, data, model, owners, replicated: bool) -> torch.
 
 
 __all__ = ["COLLECTIVE_OPS", "Call", "Recorder", "RecordingGroup", "all_gather",
-           "all_reduce", "collective_bytes", "gather_ids", "group_rank", "group_size",
+           "all_reduce", "collective_bytes", "copy_to", "gather_ids", "group_rank", "group_size",
            "owned_rows", "recording", "reduce_scatter", "sum_owners"]

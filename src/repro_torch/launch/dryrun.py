@@ -24,11 +24,13 @@ train step runs the sharded forward and backward and sums the gradients
 ``molecule``, whose step runs on one rank's part of the state and the
 batch (``dist.placement``): the row-sharded tables' exchange, the loss's
 sums, the replicated gradients' sum (one device's whole step; the
-reference's collectives are GSPMD's, which XLA chooses); and the cells
-whose MoE resolves to expert-parallel dispatch, where only
-``models.layers._moe_ep``'s collectives run on a group in the port. The
-LM cells' other collectives run on no group in the port yet (ROADMAP
-A6.6b), and serving ignores the mesh: ``collectives`` is null there,
+reference's collectives are GSPMD's, which XLA chooses); the five LM
+``train_4k`` cells, whose tensor- and sequence-parallel step runs on one
+rank's blocks (its collectives forward, recomputed and backward, and the
+gradients' sums; the count's formula is ``count_collectives``'); and the
+LM prefill and decode cells whose MoE resolves to expert-parallel
+dispatch, where ``models.layers._moe_ep``'s are the only collectives on a
+group. Serving otherwise ignores the mesh: ``collectives`` is null there,
 ``collectives_note`` says why.
 
 Usage:
@@ -39,6 +41,8 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import copy
+import dataclasses
 import json
 import math
 import os
@@ -150,46 +154,73 @@ def step_collectives(bundle, state, batch) -> dict:
 
 
 def moe_collectives(bundle, mesh: Mesh, device="meta") -> dict:
-    """``_moe_ep``'s collectives of one rank of ``mesh`` over an LM cell's
-    step: every layer's MoE on the rank's token shard (its micro-batches in
-    turn), forward, and backward for a train cell; the rank holding the
-    router and its experts, as ``_moe_ep`` takes them. On ``meta`` over a
-    recording mesh nothing is computed; over a host mesh on another device
-    the layers run on random inputs and their collectives move."""
+    """``_moe_ep``'s collectives of one rank of ``mesh`` over an LM serving
+    cell's step (serving ignores the mesh but for the MoE's expert-parallel
+    dispatch): every layer's MoE forward on the rank's token shard, the
+    rank holding the router and its experts, as ``_moe_ep`` takes them. On
+    ``meta`` over a recording mesh nothing is computed; over a host mesh on
+    another device the layers run on random inputs and their collectives
+    move. (A train cell's step is ``lm_step_collectives``'.)"""
     from ..models.layers import act_fn
 
     cfg = bundle.cfg
     moe, d, L = cfg.moe, cfg.d_model, cfg.n_layers
-    train = bundle.kind == "train"
     tok = bundle.make_inputs()["tokens"]
     b_l, s = shard_shape(tok.shape, bundle.input_pspecs["tokens"], mesh)
-    n_micro = getattr(bundle.step_fn, "n_micro", 1) if train else 1
     e_l = moe.n_experts // mesh.shape["model"]
     fsdp = bundle.rules.axes_for("d_model", d) or ()
     d_l = d // math.prod(mesh.shape[a] for a in fsdp)
     gen = torch.Generator().manual_seed(0)
 
     def draw(*shape):
-        t = (torch.empty(shape, device="meta") if device == "meta"
-             else (0.05 * torch.randn(shape, generator=gen)).to(device))
-        return t.requires_grad_(train)
+        if device == "meta":
+            return torch.empty(shape, device="meta")
+        return (0.05 * torch.randn(shape, generator=gen)).to(device)
 
-    with recording() as rec:
-        total = 0.0
+    with recording() as rec, torch.no_grad():
         for _ in range(L):
             params = dict(router=draw(d, moe.n_experts), w_up=draw(e_l, d_l, moe.d_ff),
                           w_down=draw(e_l, moe.d_ff, d_l))
             if moe.gated:
                 params["w_gate"] = draw(e_l, d_l, moe.d_ff)
-            for _ in range(n_micro):
-                x = draw(b_l // n_micro, s, d).to(cfg.compute_dtype)
-                y, _, aux = moe_ffn(x, params, moe, act=act_fn(cfg.act),
-                                    compute_dtype=cfg.compute_dtype, rules=bundle.rules)
-                if train:
-                    total = total + y.to(torch.float32).sum() + aux
-        if train:
-            total.backward()
+            moe_ffn(draw(b_l, s, d).to(cfg.compute_dtype), params, moe, act=act_fn(cfg.act),
+                    compute_dtype=cfg.compute_dtype, rules=bundle.rules)
     return rec.summary()
+
+
+_LM_COUNTS: dict = {}   # count_collectives' LM train counts, by what they depend on
+
+
+def lm_step_collectives(bundle, mesh: Mesh, reduced: bool = False,
+                        global_batch: Optional[int] = None) -> dict:
+    """One rank's collectives of an LM train cell's whole step on the
+    recording ``mesh``: its part of the state and the batch
+    (``dist.placement``) through ``bundle.step_fn`` on the meta device. The
+    layers are alike, so a cell of L > 2 layers is counted at 1 and 2 and
+    each figure taken as c1 + (L − 1)·(c2 − c1): exact, as every layer
+    issues the same calls and the gradients' sums carry (L, ...) stacks."""
+    from ..configs._families import lm_cell
+
+    cfg = bundle.cfg
+
+    def at(n_layers):
+        b = bundle if n_layers == cfg.n_layers else lm_cell(
+            bundle.arch, dataclasses.replace(cfg, n_layers=n_layers), bundle.shape,
+            reduced, "meta", global_batch, mesh=mesh)
+        pl = Placement(b, mesh)
+        return step_collectives(b, pl.local_state(b.state_shapes()),
+                                pl.local_batch(meta_inputs(b.make_inputs())))
+
+    if cfg.n_layers <= 2:
+        return at(cfg.n_layers)
+    c1, c2 = at(1), at(2)
+
+    def extend(a, b):
+        if isinstance(a, dict):
+            return {k: extend(a[k], b[k]) for k in a}
+        return a + (cfg.n_layers - 1) * (b - a)
+
+    return extend(c1, c2)
 
 
 def count_collectives(arch: str, shape: str, mesh: Mesh, reduced: bool = False,
@@ -197,7 +228,33 @@ def count_collectives(arch: str, shape: str, mesh: Mesh, reduced: bool = False,
     """(collectives, note): one device's collectives of the cell's step on
     ``mesh`` (``dist.group_ops.collective_bytes``' shape) and what they cover, or
     (None, why) for a cell the port runs on no group. ``global_batch``
-    replaces the cell's batch (``configs.get_cell``)."""
+    replaces the cell's batch (``configs.get_cell``).
+
+    An LM ``train_4k`` cell (``lm_step_collectives``) on a mesh whose
+    ``model`` axis divides the sequence (sequence parallelism, every
+    production and card mesh) issues, with D, M the axes' sizes, n_micro
+    micro-batches, L layers and n_c = S / 512 cross-entropy chunks, per
+    micro-batch:
+      * ``tok_emb``: row-sharded (V divides D·M), an all-gather of the ids,
+        a reduce-scatter of the rows and an all-gather of their cotangents,
+        over the world; replicated, an all-gather of the ids over ``data``
+        (none at D = 1);
+      * a layer, whose forward checkpointing runs again in the backward up
+        to the last tensor the backward needs (so a block's final
+        reduce-scatter, and the MoE's sums after it, are not run again):
+        attention (or MLA) with heads split, 3 all-gathers and 3
+        reduce-scatters over ``model`` (forward, again, backward), with
+        heads whole 2 all-gathers and 1 reduce-scatter; a dense FFN with
+        ff split 3 all-gathers and 2 reduce-scatters, whole none; an
+        expert-parallel MoE 3 all-gathers, 2 reduce-scatters and 2
+        all-reduces (the touched masks and the aux losses, forward only);
+      * the cross-entropy: vocabulary split, an all-gather of the hidden
+        states and its reduce-scatter backward, and a chunk 2 all-gathers
+        of the logsumexps (forward and again) and 1 all-reduce of the gold
+        logits, then 1 all-reduce over ``data`` (none at D = 1);
+        vocabulary whole, 1 all-reduce over the world;
+    and once a step, one all-reduce of the gradients a group that sums any
+    (``configs._families.lm_grad_axes``: ``data``, the world)."""
     rec_mesh = make_recording_mesh(mesh)
     bundle = get_cell(arch, shape, device="meta", mesh=rec_mesh, reduced=reduced,
                       global_batch=global_batch)
@@ -208,6 +265,19 @@ def count_collectives(arch: str, shape: str, mesh: Mesh, reduced: bool = False,
                                 meta_inputs(bundle.make_inputs()))
         return coll, ("the train step: the sharded forward and backward "
                       "(models.dimenet.forward_flat_sharded) and the gradients' sum")
+    if bundle.kind == "train" and family == "lm":
+        # lm_rules split nothing over a pod axis: no group's size depends on it
+        key = (arch, shape, reduced, global_batch, mesh.shape.get("data"),
+               mesh.shape.get("model"))
+        if key not in _LM_COUNTS:
+            _LM_COUNTS[key] = lm_step_collectives(bundle, rec_mesh, reduced, global_batch)
+        return copy.deepcopy(_LM_COUNTS[key]), (
+            "the train step of one rank: the tensor-parallel blocks' sequence gathers and "
+            "reduce-scatters over model (dist.tensor_parallel), the row-sharded tok_emb's "
+            "exchange, the vocabulary-parallel cross-entropy's sums, the expert-parallel "
+            "MoE's, forward, the forward again where torch.utils.checkpoint recomputes it, "
+            "and backward, and the gradients' sums; the reference's collectives are "
+            "GSPMD's, which XLA chooses, not this count")
     if bundle.kind == "train" and (family == "recsys" or shape == "molecule"):
         pl = Placement(bundle, rec_mesh)
         coll = step_collectives(bundle, pl.local_state(bundle.state_shapes()),
@@ -220,13 +290,9 @@ def count_collectives(arch: str, shape: str, mesh: Mesh, reduced: bool = False,
     if (family == "lm" and bundle.cfg.moe is not None
             and moe_dispatch(bundle.cfg.moe, bundle.rules) == "ep"):
         coll = moe_collectives(bundle, rec_mesh)
-        what = "forward and backward" if bundle.kind == "train" else "forward"
         return coll, (f"models.layers._moe_ep over the {bundle.cfg.n_layers} MoE layers, "
-                      f"{what}; the cell's other collectives (GSPMD's in the reference) "
-                      "run on no group in the port yet (ROADMAP A6.6b)")
-    if family == "lm":
-        return None, ("the reference's collectives here are what GSPMD inserts; the port "
-                      "runs this cell on no process group yet (ROADMAP A6.6b)")
+                      "forward; serving ignores the mesh but for the MoE's expert-parallel "
+                      "dispatch (GSPMD's collectives in the reference)")
     return None, ("the reference's collectives here are what GSPMD inserts; the port "
                   "runs only the train cells on a process group: serving ignores the "
                   "mesh, as the reference's does")

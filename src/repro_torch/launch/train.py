@@ -4,7 +4,8 @@
       --arch ARCH \
       --shape SHAPE --steps 100 --interval 20 --bits 4 \
       --policy intermittent --ckpt-dir CKPT_DIR [--reduced | --full-config] \
-      [--vocab-cap ROWS] [--fail-at 60] [--device cuda|cpu] [--mesh DATAxMODEL]
+      [--vocab-cap ROWS] [--layers N] [--global-batch B] [--fail-at 60] \
+      [--device cuda|cpu] [--mesh DATAxMODEL]
 
 ARCH is any arch of the registry: xdeepfm, dlrm-rm2, mind, bert4rec
 (recsys), dimenet (gnn), qwen2-0.5b, nemotron-4-15b, olmoe-1b-7b,
@@ -14,13 +15,18 @@ family: ``train_batch`` (recsys),
 (dimenet), ``train_4k`` (the LMs).
 
 Runs on the card (``--device cuda``, the default) and raises when there is
-none; ``--device cpu`` runs the same path on the CPU.
+none; ``--device cpu`` runs the same path on the CPU. ``--layers`` keeps an
+LM's first N layers (its widths stay), ``--global-batch`` replaces the
+shape's batch (an LM or recsys train cell's): cuts for one card.
 
 ``--mesh DATAxMODEL`` runs this process as one of DATA·MODEL ranks of a
 (data, model) mesh (``launch.mesh.make_host_mesh``), e.g.
 
   torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch dlrm-rm2 \
       --shape train_batch --mesh 2x2 --ckpt-dir CKPT_DIR ...
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch qwen2-0.5b \
+      --shape train_4k --mesh 2x2 --ckpt-dir CKPT_DIR ...
 
 It takes the process group already initialised, or initialises a gloo
 group from ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``.
@@ -36,12 +42,24 @@ Rank r runs on ``cuda:(r % device_count)``. The mesh takes:
     ShardedLookup``), the replicated leaves' gradients summed over
     ``data``. At a save the row-sharded state is gathered to rank 0, and a
     restore reads each rank's own rows, held bit-equal to the same rows of
-    a one-process restore of the chain.
+    a one-process restore of the chain;
+  * the five LM cells' ``train_4k`` (qwen2-0.5b, nemotron-4-15b,
+    olmoe-1b-7b, dbrx-132b, minicpm3-4b): tensor-parallel attention, MLA,
+    FFN and experts over ``model``, the residual sequence-parallel, a
+    vocabulary-parallel cross-entropy, ``tok_emb``'s rows over the mesh
+    where they divide it (``dist.tensor_parallel``,
+    ``models.transformer.train_loss``); each rank holds its blocks
+    (``dist.placement``), made leaf by leaf; saves gather them to rank 0,
+    and a restore reads each rank's rows of ``tok_emb`` and of the expert
+    blocks (one range a layer).
 One rank (rank 0) writes the one checkpoint chain and every rank restores
-from it; the replicated parameters are checked bit-equal across the ranks
-after every step and the restore. The LM cells raise ``ValueError``
-before any group opens: their tensor-parallel step is ROADMAP A6.6b, and
-no cell trains on one device in the mesh's place.
+from it; after every step and the restore each leaf is checked bit-equal
+across the ranks that hold the same block of it: a replicated one over
+every rank, one split over ``model`` alone over ``data``. Refused with
+``ValueError`` before any group opens, so that no cell trains on one
+device in the mesh's place: a mesh spec that does not parse, a serving
+shape, and a config with ``pure_fsdp_train`` (the port has no pure-FSDP
+step; no registered config sets it).
 """
 
 from __future__ import annotations
@@ -63,24 +81,31 @@ def _parse_mesh(spec: str):
 
 def _refuse(arch: str, shape: str, why: str):
     return ValueError(
-        f"--mesh: {arch} {shape} {why}; the port runs on a mesh the recsys train "
+        f"--mesh: {arch} {shape} {why}; the port trains on a mesh the recsys train "
         "cells, dimenet's molecule and its flat-graph cells whose batch shards over "
-        "it. The LM cells' tensor-parallel step waits for ROADMAP A6.6b")
+        "it, and the five LM train_4k cells (tensor- and sequence-parallel)")
 
 
-def join_mesh(spec: str, arch: str, shape: str, device: str):
+def join_mesh(spec: str, arch: str, shape: str, device: str, reduced: bool = True):
     """(mesh, this rank's device, whether this call opened the group) for
     ``--mesh``. Refuses a cell the port cannot run on a group before it
     touches one."""
     import torch
     import torch.distributed as dist
 
-    from ..configs import arch_family
+    from ..configs import _module, arch_family
+    from ..configs.shapes import FAMILY_SHAPES
     from .mesh import make_host_mesh
 
     d, m = _parse_mesh(spec)
-    if arch_family(arch) == "lm":
-        raise _refuse(arch, shape, "runs on no process group yet")
+    family = arch_family(arch)
+    kind = FAMILY_SHAPES[family].get(shape, {}).get("kind")
+    if kind != "train":
+        raise _refuse(arch, shape, f"is a {kind} shape, and the mesh trains" if kind
+                      else "is no shape of its family")
+    if family == "lm" and _module(arch).make_config(reduced).pure_fsdp_train:
+        raise _refuse(arch, shape, "sets pure_fsdp_train: the port has no pure-FSDP step "
+                      "(minicpm3-4b's attempt was refuted in the reference)")
     opened = not dist.is_initialized()
     if opened:
         dist.init_process_group("gloo")
@@ -105,16 +130,42 @@ def params_digest(params) -> str:
     return h.hexdigest()
 
 
-def check_replicas(params, mesh, what: str) -> None:
-    """Raise unless every rank of ``mesh`` holds bit-equal ``params`` (a
-    tree, or a list of the replicated leaves)."""
+def check_replicas(params, mesh, what: str, group=None) -> None:
+    """Raise unless every rank of ``group`` (default: all of ``mesh``'s)
+    holds bit-equal ``params`` (a tree, or a list of leaves)."""
     import torch.distributed as dist
 
+    from ..dist.group_ops import group_size
+
+    group = mesh.group if group is None else group
     mine = params_digest(params)
-    every = [None] * mesh.size
-    dist.all_gather_object(every, mine, group=mesh.group)
+    every = [None] * group_size(group)
+    dist.all_gather_object(every, mine, group=group)
     if len(set(every)) != 1:
         raise RuntimeError(f"the ranks' parameters differ {what}: {every}")
+
+
+def _held_alike(placement, mesh):
+    """[(group, leaves of a params tree → list)]: the leaves every rank
+    holds whole, over the mesh's group; the leaves split over ``model``
+    alone, over ``data`` (its ranks hold the same block)."""
+    from ..tree import flatten_with_path, keystr
+
+    specs = {keystr(p): s for p, s in flatten_with_path(placement.specs.params)}
+
+    def axes(path):
+        s = specs[keystr(path)]
+        return {a for e in s if e is not None for a in (e if isinstance(e, tuple) else (e,))}
+
+    def pick(want):
+        return lambda params: [leaf for path, leaf in flatten_with_path(params)
+                               if want(axes(path))]
+
+    out = [(None, pick(lambda a: not a))]
+    if "model" in mesh.shape and any(axes(p) == {"model"} for p, _ in
+                                     flatten_with_path(placement.specs.params)):
+        out.append((mesh.group_for(("data",)), pick(lambda a: a == {"model"})))
+    return out
 
 
 def main(argv=None):
@@ -134,6 +185,10 @@ def main(argv=None):
     ap.add_argument("--full-config", dest="reduced", action="store_false")
     ap.add_argument("--vocab-cap", type=int, default=None,
                     help="cap every embedding table at this many rows")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="an LM's depth cut to its first N layers")
+    ap.add_argument("--global-batch", type=int, default=None,
+                    help="the shape's global batch replaced (LM and recsys train cells)")
     ap.add_argument("--fail-at", type=int, default=None)
     ap.add_argument("--mesh", default=None,
                     help="DATAxMODEL, e.g. 2x2: one rank of a (data, model) mesh")
@@ -145,7 +200,8 @@ def main(argv=None):
 
     mesh, device, opened = None, args.device, False
     if args.mesh:
-        mesh, device, opened = join_mesh(args.mesh, args.arch, args.shape, args.device)
+        mesh, device, opened = join_mesh(args.mesh, args.arch, args.shape, args.device,
+                                         args.reduced)
     try:
         return _train(args, mesh, device)
     finally:
@@ -156,18 +212,33 @@ def main(argv=None):
 
 
 def _train(args, mesh, device):
-    from ..configs import get_cell
+    import dataclasses
+
+    from ..configs import _module, arch_family, get_cell
+    from ..configs._families import lm_cell
     from ..core import CheckpointConfig, InMemoryStore, LocalFSStore, PAPER_DEFAULTS
     from ..core.bitwidth import BitwidthController
     from ..dist.placement import Placement
     from ..models import dimenet
     from ..train.loop import MeshTrainer, SimulatedFailure, Trainer, TrainerConfig
-    from ..tree import flatten_with_path
 
-    bundle = get_cell(args.arch, args.shape, reduced=args.reduced,
-                      device=device, vocab_cap=args.vocab_cap, mesh=mesh)
+    if args.layers is not None:
+        if arch_family(args.arch) != "lm":
+            raise ValueError(f"--layers cuts an LM's depth; {args.arch} is no LM")
+        cfg = dataclasses.replace(_module(args.arch).make_config(args.reduced),
+                                  n_layers=args.layers)
+        bundle = lm_cell(args.arch, cfg, args.shape, args.reduced, device,
+                         args.global_batch, mesh=mesh)
+    else:
+        bundle = get_cell(args.arch, args.shape, reduced=args.reduced, device=device,
+                          vocab_cap=args.vocab_cap, global_batch=args.global_batch, mesh=mesh)
     rank0, placement = True, None
-    replicated = lambda params: params
+    alike = [(None, lambda params: params)]
+
+    def check_alike(params, what):
+        for group, leaves in alike:
+            check_replicas(leaves(params), mesh, what, group)
+
     if mesh is not None:
         import torch.distributed as dist
 
@@ -178,14 +249,13 @@ def _train(args, mesh, device):
                               f"not shard over {mesh!r}")
         else:
             placement = Placement(bundle, mesh)
-            replicated = lambda params: [leaf for path, leaf in flatten_with_path(params)
-                                         if placement.param_is_replicated(path)]
+            alike = _held_alike(placement, mesh)
         rank0 = dist.get_rank() == 0
         step = bundle.step_fn
 
         def checked_step(state, batch):
             state, metrics = step(state, batch)
-            check_replicas(replicated(state.params), mesh, f"after step {state.step}")
+            check_alike(state.params, f"after step {state.step}")
             return state, metrics
 
         bundle.step_fn = checked_step
@@ -209,8 +279,7 @@ def _train(args, mesh, device):
         dist.barrier(group=mesh.group)   # the writer's earlier saves are committed
     start = trainer.init_or_restore()
     if mesh is not None:
-        check_replicas(replicated(trainer.state.params), mesh,
-                       f"after the restore at {start}")
+        check_alike(trainer.state.params, f"after the restore at {start}")
     if start and rank0 and placement is not None:
         print(f"restored rows of {mesh.size} ranks bit-equal to the one-process restore "
               f"of step {trainer.restored_rows_checked}")
@@ -232,7 +301,7 @@ def _train(args, mesh, device):
             print(f"mesh {args.mesh}: {mesh.size} ranks, parameters bit-equal after "
                   f"every step and the restore")
             if placement is not None and trainer.gather_s:
-                print(f"gathered {placement.split_bytes(trainer.state) * mesh.size / 1e6:.2f}"
+                print(f"gathered {placement.gathered_bytes(trainer.state) / 1e6:.2f}"
                       f" MB to rank 0 a save: " + ", ".join(
                           f"{t:.3f}" for t in trainer.gather_s) + " s")
     if rank0:

@@ -440,7 +440,7 @@ def train_loss(params, batch, cfg: DimeNetConfig,
     ``forward_flat_sharded`` on this rank's ranges (``_sharded_loss``),
     each rank then holding the same global loss. The gradient rule there:
     a replicated parameter's gradient is the sum of the ranks' gradients
-    (``train.steps.make_train_step(grad_group=...)`` sums them in one
+    (``train.steps.make_train_step(grad_groups=...)`` sums them in one
     all-reduce)."""
     if cfg.d_feat == 0:
         lookup = table_lookup(rules)

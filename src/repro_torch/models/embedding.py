@@ -243,6 +243,28 @@ class ShardedLookup(Lookup):
     def fields(self, tables, ids, rows):
         return self._split(tables, ids, rows, _bag_bf16)
 
+    def ids_over_owners(self, x: torch.Tensor) -> Ids:
+        """``x`` with every rank's ``x`` gathered over the rows' axes, in
+        rank order: where each rank holds another part of the batch (an LM
+        rank's sequence slice of its data shard), the global batch's ids."""
+        from ..dist.group_ops import gather_ids
+
+        return Ids(x, gather_ids(x, self.owners))
+
+    def take_sliced(self, table, ids: Ids, rows: int, dtype) -> torch.Tensor:
+        """``take(table, ids.local).to(dtype)`` where each rank of the rows'
+        axes holds another part of the batch (``ids_over_owners``): the
+        owned rows of every rank's ids, cast to ``dtype`` (exact: one owner
+        an id), reduce-scattered over the owners, each rank keeping its
+        own. Backward: the cotangents all-gathered over the owners, each
+        added into its owned row. A replicated table is a plain take."""
+        from ..dist.group_ops import owned_rows, reduce_scatter
+
+        lo = self._check(table, rows)
+        if not self.sharded(rows):
+            return take(table, ids.local).to(dtype)
+        return reduce_scatter(owned_rows(table, ids.every, lo).to(dtype), self.owners, dim=0)
+
     def rows(self, tables, ids, rows):
         with torch.no_grad():
             return self._split(tables, ids, rows, lambda r: r)

@@ -96,10 +96,14 @@ def chunked_attention(q, k, v, *, causal: bool, q_chunk: int = 512,
     ``jax.checkpoint``), so no (q_chunk, k_chunk) score block is kept.
 
     q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D) with Hq % Hkv == 0.
-    Returns (B, Sq, Hq, D).
+    Returns (B, Sq, Hq, D). On the meta device (the dry run, which counts
+    a step's collectives) the whole sequence is one chunk: nothing is
+    computed there, and chunks would only repeat the bookkeeping.
     """
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
+    if q.device.type == "meta":
+        q_chunk, k_chunk = max(Sq, 8), max(Sk, 8)
     G = Hq // Hkv
     scale = 1.0 / np.sqrt(D)
     orig_Sq, orig_Sk = Sq, Sk
@@ -315,7 +319,8 @@ def _gather_d(w: torch.Tensor, axis: int, group, compute_dtype) -> torch.Tensor:
     return all_gather(w.to(compute_dtype), group, dim=axis)
 
 
-def _moe_ep(x, params, cfg: MoEConfig, act, compute_dtype, rules: ShardingRules):
+def _moe_ep(x, params, cfg: MoEConfig, act, compute_dtype, rules: ShardingRules,
+            combine: Optional[Callable] = None):
     """Expert parallelism across the ranks of ``rules.mesh``. ``x`` is this
     rank's shard of the tokens along the rules' batch axes; activations
     are the same on every ``model`` rank of one batch shard, so no token
@@ -338,7 +343,15 @@ def _moe_ep(x, params, cfg: MoEConfig, act, compute_dtype, rules: ShardingRules)
     parameter every rank holds (the router, everything outside the MoE)
     the mean over all ranks; for expert j's weights the sum over the
     batch axes' ranks of ``model`` index j, over the world size. The
-    collectives are ``dist.group_ops``', so a recording mesh counts them."""
+    collectives are ``dist.group_ops``', so a recording mesh counts them.
+
+    ``combine`` (the tensor-parallel train step's, ``dist.tensor_parallel``)
+    sums the partial outputs over ``model`` in its place, in ``x``'s dtype:
+    a reduce-scatter back to the rank's sequence slice, or an all-reduce
+    whose backward passes the cotangent through. The loss meant is then
+    one global loss that every rank holds: the aux losses' sum passes its
+    cotangent through too, and a parameter's gradient on a rank is its
+    part of the global one (``configs._families.lm_grad_axes``)."""
     mesh = rules.mesh
     if mesh is None or not getattr(mesh, "has_group", False):
         raise ValueError(
@@ -373,6 +386,11 @@ def _moe_ep(x, params, cfg: MoEConfig, act, compute_dtype, rules: ShardingRules)
                                      compute_dtype=compute_dtype, j=j)
     batch_axes = tuple(a for a in (rules.axes_for("batch") or ()) if a != "model")
     reduce_group = mesh.group_for(("model",) + batch_axes)
+    if combine is not None:
+        out = combine(out.reshape(B, S, d).to(x.dtype))
+        touched = all_reduce(touched, reduce_group)
+        aux = all_reduce(aux, reduce_group, backward="identity") / group_size(reduce_group)
+        return out, touched > 0, aux
     out = all_reduce(out, mesh.group_for(("model",)))
     touched = all_reduce(touched, reduce_group)
     aux = all_reduce(aux, reduce_group) / group_size(reduce_group)
@@ -395,7 +413,7 @@ def moe_dispatch(cfg: MoEConfig, rules: ShardingRules) -> str:
 
 
 def moe_ffn(x, params, cfg: MoEConfig, *, act: Callable = F.silu,
-            compute_dtype=torch.bfloat16, rules: ShardingRules = NO_SHARDING):
+            compute_dtype=torch.bfloat16, rules: ShardingRules = NO_SHARDING, tp=None):
     """Mixture-of-experts FFN → (output, expert-touched mask (E,), aux loss).
 
     Two dispatch paths, as the reference's:
@@ -415,9 +433,18 @@ def moe_ffn(x, params, cfg: MoEConfig, *, act: Callable = F.silu,
 
     The touched mask feeds Check-N-Run's tracker: with top-k routing only
     the routed experts change in an interval, so expert blocks checkpoint
-    incrementally like embedding rows."""
+    incrementally like embedding rows.
+
+    ``tp`` (``dist.tensor_parallel``, a rank of the tensor-parallel train
+    step): ``x`` is the residual's layout there. ``ep`` takes the rank's
+    data shard whole (``tp.enter``) and leaves through ``tp.leave``;
+    ``dense`` (experts that do not split over ``model``) runs on the
+    rank's own tokens, its touched masks summed and its aux losses
+    averaged over the ranks that hold other tokens."""
     B, S, d = x.shape
     dispatch = moe_dispatch(cfg, rules)
+    if dispatch == "ep" and tp is not None:
+        return _moe_ep(tp.enter(x), params, cfg, act, compute_dtype, rules, combine=tp.leave)
     if dispatch == "ep":
         return _moe_ep(x, params, cfg, act, compute_dtype, rules)
     xf = x.reshape(-1, d)
@@ -428,6 +455,10 @@ def moe_ffn(x, params, cfg: MoEConfig, *, act: Callable = F.silu,
         touched = torch.zeros((cfg.n_experts,), dtype=torch.bool, device=x.device)
         touched[ids.reshape(-1)] = True
     aux_loss = _moe_aux_loss(probs, ids, cfg.n_experts)
+    if tp is not None:
+        group = tp.world if tp.sp else tp.data
+        touched = all_reduce(touched.to(torch.float32), group) > 0
+        aux_loss = tp.sum_over(aux_loss, spread=tp.sp) / group_size(group)
     return out.reshape(B, S, d).to(x.dtype), touched, aux_loss
 
 
@@ -463,7 +494,7 @@ def mla_params_init(gen: torch.Generator, d_model: int, n_heads: int,
 def mla_attention(x, params, cfg: MLAConfig, n_heads: int, positions, *,
                   causal: bool = True, compute_dtype=torch.bfloat16,
                   cache: Optional[Dict[str, torch.Tensor]] = None, cache_len=None,
-                  attention: Callable = chunked_attention):
+                  attention: Callable = chunked_attention, tp=None):
     """Multi-head Latent Attention (DeepSeek-V2 / MiniCPM3) → (y, cache).
 
     Caches only the kv latent (``ckv``, kv_lora_rank wide) and the shared
@@ -474,7 +505,17 @@ def mla_attention(x, params, cfg: MLAConfig, n_heads: int, positions, *,
     sliced back to v's head dim. With a cache (decode) the new latents are
     written into it in place at ``cache_len`` and the scores and values are
     taken against the latents directly (W_uk absorbed into q, W_uv applied
-    after), in f32 with the f32 minimum past the valid length."""
+    after), in f32 with the f32 minimum past the valid length.
+
+    ``tp`` (a rank of the tensor-parallel train step,
+    ``dist.tensor_parallel``): ``x`` is the residual's layout there. Where
+    the heads shard, the latent projections (``w_dq``, ``q_norm``,
+    ``w_dkv``, ``kv_norm``, ``w_kpe``, replicated) run on the data shard's
+    whole sequence, the rank's heads of ``w_uq``, ``w_uk`` and ``w_uv``
+    expand them, and ``w_o`` is row-parallel; where they do not, every
+    rank attends with every head and keeps its own query positions."""
+    if tp is not None:
+        return _mla_tp(x, params, cfg, positions, compute_dtype, causal, tp), None
     B, S, d = x.shape
     cd = compute_dtype
     nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
@@ -505,6 +546,19 @@ def mla_attention(x, params, cfg: MLAConfig, n_heads: int, positions, *,
         out = attention(qfull, kfull, vpad, causal=causal)[..., :cfg.v_head_dim]
     y = torch.einsum("bshd,hdm->bsm", out.to(cd), params["w_o"].to(cd))
     return y.to(x.dtype), new_cache
+
+
+def _mla_tp(x, params, cfg: MLAConfig, positions, compute_dtype, causal, tp):
+    cd = compute_dtype
+    xf = tp.enter(x) if tp.heads else tp.whole(x)
+    q_nope, q_rope, ckv, kpe = mla_project(xf, params, cfg, positions, cd)
+    qfull, kfull, vpad = mla_expand(q_nope, q_rope, ckv, kpe, params,
+                                    params["w_uk"].shape[1], cd)
+    out = chunked_attention(qfull, kfull, vpad, causal=causal)[..., :cfg.v_head_dim]
+    if not tp.heads:
+        out = tp.own(out)
+    y = torch.einsum("bshd,hdm->bsm", out.to(cd), params["w_o"].to(cd))
+    return (tp.leave(y) if tp.heads else y).to(x.dtype)
 
 
 def mla_project(x, params, cfg: MLAConfig, positions, compute_dtype):

@@ -306,16 +306,20 @@ class Trainer:
 class MeshTrainer(Trainer):
     """One rank of a (data, model) mesh whose cell's state is split over
     the ranks (``dist.placement.Placement``): the rank's block of every
-    row-sharded table, accumulator and touched mask, the replicated leaves
-    whole. It draws the global batch and keeps its part. Rank 0 writes the
-    one chain (``TrainerConfig.writes_checkpoints``): at each save the
-    split leaves are gathered to its host and it saves the whole state, as
-    a single process would. A restore reads each rank's own rows of every
-    row-sharded table through ``CheckNRunManager.restore_part`` (host r of
-    the mesh's size), replicated tables and dense leaves whole; rank 0
-    also restores the chain whole (which resyncs its manager) and every
-    rank's rows are held bit-equal to the same rows of that one-process
-    restore."""
+    split leaf (row-sharded tables, and for an LM the model-sharded dense
+    leaves and expert blocks), with its accumulator and touched mask, the
+    replicated leaves whole; a fresh state is made leaf by leaf
+    (``Placement.init_state``), never whole. It draws the global batch and
+    keeps its part. Rank 0 writes the one chain
+    (``TrainerConfig.writes_checkpoints``): at each save the split leaves
+    are gathered to its host and it saves the whole state, as a single
+    process would. A restore reads each rank's own rows of every tracked
+    table through ``CheckNRunManager.restore_part`` (host r of the mesh's
+    size; an expert block's rows one range a layer,
+    ``Placement.row_ranges``), replicated tables and dense leaves whole,
+    the dense leaves then cut to the rank's blocks; rank 0 also restores
+    the chain whole (which resyncs its manager) and every rank's rows are
+    held bit-equal to the same rows of that one-process restore."""
 
     def __init__(self, bundle, store: ObjectStore, ckpt_cfg: CheckpointConfig,
                  trainer_cfg: TrainerConfig, placement,
@@ -341,7 +345,7 @@ class MeshTrainer(Trainer):
         pl, tracked = self.placement, self.bundle.tracked
         group, n = pl.mesh.group, pl.mesh.size
         rank = dist.get_rank(group)
-        template = pl.local_state(self.bundle.make_state())
+        template = pl.init_state()
         whole = None
         if self.cfg.writes_checkpoints:
             try:
@@ -354,8 +358,11 @@ class MeshTrainer(Trainer):
             self.state = template
             start_batch = 0
         else:
-            part = self.manager.restore_part(rank, step=step[0], num_hosts=n,
-                                             whole=pl.replicated_tables())
+            whole_tables = pl.replicated_tables()
+            part = self.manager.restore_part(
+                rank, step=step[0], num_hosts=n, whole=whole_tables,
+                ranges={name: pl.row_ranges(name) for name in tracked
+                        if name not in whole_tables})
             part.dense = pl.local_dense(part.dense)
             self.state = restore_train_state(template, part, tracked)
             start_batch = part.extra.get("reader", {}).get("next_batch", int(part.step))
@@ -370,40 +377,41 @@ class MeshTrainer(Trainer):
     def _check_restored_rows(self, whole, part, n: int) -> None:
         """Raise on every rank unless each rank's restored rows and row
         state are bit-equal to the same rows of rank 0's whole restore."""
+        import numpy as np
         import torch.distributed as dist
 
-        from ..core.range_reader import row_shard_bounds
         from ..dist.placement import rows_digest
+        from ..launch.mesh import Mesh
 
         names = sorted(self.bundle.tracked)
+        pl = self.placement
 
-        def digest(restored, first_row, bounds):
-            """The digest of each table's rows ``bounds(name)``, and its
-            row state's, of arrays whose row 0 is row ``first_row(name)``."""
+        def digest(restored, ranges):
+            """The digest of each table's rows in ``ranges(name)`` (rows of
+            ``restored``'s arrays), then its row state's."""
             out = []
             for name in names:
-                lo, hi = (b - first_row(name) for b in bounds(name))
-                out.append(restored.tables[name][lo:hi])
-                out += [restored.row_state[name][k][lo:hi]
-                        for k in sorted(restored.row_state.get(name, {}))]
+                keys = sorted(restored.row_state.get(name, {}))
+                for arr in [restored.tables[name]] + [restored.row_state[name][k]
+                                                       for k in keys]:
+                    out += [arr[lo:hi] for lo, hi in ranges(name)]
             return rows_digest(out)
 
-        ranges = part.extra["shard"]["row_range"]
-        mine = digest(part, lambda name: ranges[name][0], lambda name: ranges[name])
-        group = self.placement.mesh.group
+        held = {name: sum(hi - lo for lo, hi in rs)
+                for name, rs in part.extra["shard"].get("row_ranges", {
+                    n: [r] for n, r in part.extra["shard"]["row_range"].items()}).items()}
+        mine = digest(part, lambda name: [(0, held[name])])
+        group = pl.mesh.group
         every = [None] * n
         dist.all_gather_object(every, mine, group=group)
         want = [None] * n
         if whole is not None:
-            replicated = set(self.placement.replicated_tables())
-
-            def bounds(r):
-                def of(name):
-                    rows = whole.tables[name].shape[0]
-                    return (0, rows) if name in replicated else row_shard_bounds(rows, n)[r]
-                return of
-
-            want = [digest(whole, lambda name: 0, bounds(r)) for r in range(n)]
+            # group rank r sits at position r of the mesh, the last axis fastest
+            shape = dict(pl.mesh.shape)
+            for r in range(n):
+                at = Mesh(shape, coords=dict(zip(shape, np.unravel_index(
+                    r, tuple(shape.values())))))
+                want[r] = digest(whole, lambda name: pl.row_ranges(name, at))
         dist.broadcast_object_list(want, src=dist.get_global_rank(group, 0), group=group)
         bad = [r for r in range(n) if every[r] != want[r]]
         if bad:

@@ -7,40 +7,78 @@ from typing import Callable, Optional
 import torch
 
 from ..optim.optimizers import Optimizer, apply_updates
-from ..tree import map_with_path, tree_map
-from .state import TrainState
+from ..tree import flatten_with_path, map_with_path, tree_map
+from .state import TrainState, tree_get
 
 
-def sum_grads(grads, group, only: Optional[Callable] = None):
-    """The sum over ``group``'s ranks of each gradient in the tree: one
-    all-reduce of every leaf flattened into one f32 buffer, split back into
-    the leaves' shapes and dtypes. ``only(path)`` picks the leaves summed
-    (by their path in the tree); the others come back as they are."""
+def sum_grads(grads, group):
+    """The sum over ``group``'s ranks of each gradient in the tree
+    (``sum_grads_by`` with one group for every leaf)."""
+    return sum_grads_by(grads, lambda path: group)
+
+
+def sum_grads_by(grads, group_of: Callable):
+    """Each gradient summed over ``group_of(path)``'s ranks (None: left as
+    it is): one all-reduce a group, of its leaves flattened into one f32
+    buffer and split back into their shapes and dtypes; the groups in the
+    order their first leaf comes in the tree, so every rank issues the
+    same calls."""
     from ..dist.group_ops import all_reduce
 
-    leaves = []
+    flat = flatten_with_path(grads)
+    groups, picked = [], {}
+    for path, g in flat:
+        group = group_of(path)
+        if group is None:
+            continue
+        if not any(group is x for x in groups):
+            groups.append(group)
+        picked[path] = group
+    summed = {}
+    for group in groups:
+        leaves = [(path, g) for path, g in flat if picked.get(path) is group]
+        buf = all_reduce(torch.cat([g.reshape(-1).to(torch.float32) for _, g in leaves]), group)
+        for (path, g), part in zip(leaves, torch.split(buf, [g.numel() for _, g in leaves])):
+            summed[path] = part.reshape(g.shape).to(g.dtype)
+    return map_with_path(lambda path, g: summed.get(path, g), grads)
 
-    def pick(path, g):
-        if only is None or only(path):
-            leaves.append(g)
 
-    map_with_path(pick, grads)
-    if not leaves:
-        return grads
-    flat = all_reduce(torch.cat([g.reshape(-1).to(torch.float32) for g in leaves]), group)
-    parts = iter(torch.split(flat, [g.numel() for g in leaves]))
+def _nested(path, leaf, skeleton):
+    """A tree of ``skeleton``'s top-level keys holding ``leaf`` at ``path``
+    alone."""
+    tree = {k: {} for k in skeleton}
+    node = tree
+    for k in path[:-1]:
+        node = node.setdefault(k, {})
+    node[path[-1]] = leaf
+    return tree
 
-    def put(path, g):
-        if only is None or only(path):
-            return next(parts).reshape(g.shape).to(g.dtype)
-        return g
 
-    return map_with_path(put, grads)
+def update_in_place(optimizer: Optimizer, box: list, state: TrainState) -> None:
+    """``optimizer``'s update written into ``state``'s own parameters and
+    optimizer state, one leaf at a time: each leaf's update on a tree of
+    that leaf alone, its new accumulator copied in and its step added to
+    the parameter (``p + u``, as ``apply_updates``), its gradient then
+    freed. ``box`` holds the gradients' tree and is emptied, so the caller
+    keeps no reference to them. The numbers are the functional update's;
+    at most one leaf's new values exist beside the state. For optimizers
+    whose update is elementwise within a leaf and whose state mirrors the
+    params (adagrad, row-wise adagrad, and ``split_optimizer`` of them)."""
+    flat = flatten_with_path(box.pop())
+    for i, (path, g) in enumerate(flat):
+        p, a = tree_get(state.params, path), tree_get(state.opt_state, path)
+        upd, new = optimizer.update(_nested(path, g, state.params),
+                                    _nested(path, a, state.opt_state),
+                                    _nested(path, p, state.params))
+        a.copy_(tree_get(new, path))
+        p.add_(tree_get(upd, path).to(p.dtype))
+        flat[i] = None
+        del g, upd, new
 
 
 def make_train_step(loss_fn: Callable, optimizer: Optimizer,
-                    n_micro: int = 1, grad_group=None,
-                    summed: Optional[Callable] = None) -> Callable:
+                    n_micro: int = 1, grad_groups: Optional[Callable] = None,
+                    in_place: bool = False) -> Callable:
     """loss_fn(params, batch) -> (loss, aux); aux may carry 'touched' masks
     which are OR-ed into the state's incremental-checkpoint tracker.
 
@@ -52,14 +90,24 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
     scales with 1/n_micro; the gradient buffer is one params-sized f32
     tree. The update allocates new params, as the reference's does.
 
-    ``grad_group``: the step of one rank of a mesh whose ranks each
-    compute one global loss: the ranks' gradients are summed over the
-    group (``sum_grads``) before the update, so every rank applies the same
-    one. The sharded DimeNet sums every leaf over its node axes' group; a
-    cell with row-sharded tables (``models.embedding.ShardedLookup``) sums
-    only the replicated leaves (``summed(path)`` true), over ``data``: a
-    table shard's gradient is already whole, from every data shard's ids,
-    and its rows are its rank's alone.
+    ``grad_groups(path)``: the step of one rank of a mesh whose ranks each
+    compute one global loss: each leaf's gradient is summed over the group
+    it names (``sum_grads_by``; None: not summed) before the update, so
+    every rank that holds the leaf applies the same one. The sharded
+    DimeNet sums every leaf over its node axes' group; a cell with
+    row-sharded tables (``models.embedding.ShardedLookup``) sums only the
+    replicated leaves, over ``data``: a table shard's gradient is already
+    whole, from every data shard's ids, and its rows are its rank's alone;
+    the LM's tensor-parallel step sums each leaf over the ranks that hold
+    other parts of its gradient (``configs._families.lm_grad_axes``).
+
+    ``in_place`` updates the state passed in (``update_in_place``): a rank
+    of an LM cell on a mesh then holds its blocks, their accumulators and
+    at most their gradients, three copies where the functional update holds
+    six at once. The functional update stays the default: its callers may
+    keep the state they pass in (a traced extra step whose state the run
+    then goes on from, a one-process step on a state whose slices a mesh's
+    ranks hold, a check that a step changed a leaf).
 
     Under micro-batching on a mesh the batch's data-sharded arrays hold
     this rank's slice of each micro-batch in turn
@@ -100,10 +148,16 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
             metrics = {k: v / n_micro for k, v in sums.items()}
 
         with torch.no_grad():
-            if grad_group is not None:
-                grads = sum_grads(grads, grad_group, summed)
-            updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
-            params = apply_updates(state.params, updates)
+            if grad_groups is not None:
+                grads = sum_grads_by(grads, grad_groups)
+            if in_place:
+                box = [grads]
+                del grads
+                update_in_place(optimizer, box, state)
+                params, opt_state = state.params, state.opt_state
+            else:
+                updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
+                params = apply_updates(state.params, updates)
         touched = dict(state.touched)
         for name, mask in touched_new.items():
             if name in touched:

@@ -43,9 +43,9 @@ against ``jax.grad`` of it under the mesh, within 1e-5 of each leaf's
 largest entry (read: at most 1.3e-6); the collectives the ranks record (``dist.group_ops``)
 against the reference's compiled HLO read by its ``collective_bytes``; the
 dry run's count (meta device, recording mesh) against the calls the ranks
-made over gloo, for the reduced ``minibatch_lg`` step and olmoe's
-expert-parallel layers; and ``_use_sharded`` against the reference's on
-every gnn cell.
+made over gloo, for the reduced ``minibatch_lg`` step, olmoe's
+tensor-parallel train step and its prefill's expert-parallel layers; and ``_use_sharded`` against the reference's
+on every gnn cell.
 """
 
 import dataclasses
@@ -232,13 +232,21 @@ _WORKER = textwrap.dedent("""
                     out[f"accuracy/{name}"] = aux["accuracy"].numpy()
                     for (path, _), g in zip(flatten_with_path(params), grads):
                         out[f"grad/{name}/" + keystr(path)] = g.numpy()
-        # the cell's train step and olmoe's expert-parallel layers, as the
-        # dry run counts them, here over gloo
+        # the cell's train step, olmoe's tensor-parallel train step (the
+        # rank's blocks and data shard) and its prefill's expert-parallel
+        # layers, as the dry run counts them, here over gloo
+        from repro_torch.data.cells import batch_for_cell
+        from repro_torch.dist.placement import Placement
+
         batch = batch_to_device({k.split("/")[1]: inp[k] for k in inp.files
                                  if k.startswith("cell/")}, "cpu")
         rec["dryrun/dimenet"] = dryrun.step_collectives(cell, cell.make_state(0), batch)
         lm = get_cell("olmoe-1b-7b", "train_4k", reduced=True, device="cpu", mesh=mesh)
-        rec["dryrun/olmoe"] = dryrun.moe_collectives(lm, mesh, device="cpu")
+        pl = Placement(lm, mesh)
+        rec["dryrun/olmoe"] = dryrun.step_collectives(
+            lm, pl.init_state(), batch_to_device(pl.local_batch(batch_for_cell(lm, 0)), "cpu"))
+        prefill = get_cell("olmoe-1b-7b", "prefill_32k", reduced=True, device="cpu", mesh=mesh)
+        rec["dryrun/olmoe_prefill"] = dryrun.moe_collectives(prefill, mesh, device="cpu")
         np.savez(os.path.join(d, f"port{rank}.npz"), **out)
         with open(os.path.join(d, f"port{rank}.json"), "w") as f:
             json.dump(rec, f)
@@ -511,12 +519,18 @@ def _mesh_2x4():
 
 
 @pytest.mark.parametrize("arch,shape,key", [("dimenet", "minibatch_lg", "dryrun/dimenet"),
-                                            ("olmoe-1b-7b", "train_4k", "dryrun/olmoe")])
+                                            ("olmoe-1b-7b", "train_4k", "dryrun/olmoe"),
+                                            ("olmoe-1b-7b", "prefill_32k",
+                                             "dryrun/olmoe_prefill")])
 def test_dry_run_count_equals_the_calls_over_gloo(runs, arch, shape, key):
     """The dry run's count (the cell's code on the meta device over a
     recording mesh) equals what the 8 ranks issued running the same code
     over gloo: the reduced ``minibatch_lg`` train step, and olmoe's
-    expert-parallel layers (forward and backward)."""
+    tensor-parallel train step (its 2 layers: heads, experts, vocabulary,
+    sequence and ``tok_emb``'s rows all split on 2 x 4; the formula of
+    ``count_collectives``' docstring), and its prefill's expert-parallel
+    layers (``moe_collectives``, forward: the combine, the touched masks
+    and the aux losses a layer)."""
     want, note = dryrun.count_collectives(arch, shape, _mesh_2x4(), reduced=True)
     assert want is not None and note
     for r in range(RANKS):
@@ -524,9 +538,16 @@ def test_dry_run_count_equals_the_calls_over_gloo(runs, arch, shape, key):
     counts = want["counts"]
     if arch == "dimenet":
         assert (counts["all-gather"], counts["reduce-scatter"], counts["all-reduce"]) == (3, 3, 2)
+        return
+    layers = get_cell(arch, shape, reduced=True, device="meta").cfg.n_layers
+    if shape == "prefill_32k":
+        assert (counts["all-gather"], counts["reduce-scatter"], counts["all-reduce"]) == (
+            0, 0, 3 * layers)
     else:
-        layers = get_cell(arch, shape, reduced=True, device="meta").cfg.n_layers
-        assert counts["all-reduce"] == 5 * layers and counts["all-gather"] == 0
+        # tok_emb 2 + 1, a layer 6 + 5 + 2, one cross-entropy chunk 3 + 1 + 2,
+        # the gradients' 2 sums
+        assert (counts["all-gather"], counts["reduce-scatter"], counts["all-reduce"]) == (
+            2 + 6 * layers + 3, 1 + 5 * layers + 1, 2 * layers + 2 + 2)
 
 
 def _ref_mesh(shape):

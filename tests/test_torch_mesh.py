@@ -251,11 +251,12 @@ def test_dryrun_cli_writes_the_cell(tmp_path, capsys):
     assert rec["status"] == "ok" and rec["n_devices"] == 256 and rec["mesh"] == "16x16"
     assert rec["card_bytes"] is None and rec["fits_card"] is None  # no card here
     assert "flops" not in rec   # no compiler: the port counts no compiled flops
-    # dbrx's MoE resolves to expert-parallel dispatch on the mesh: its
-    # collectives are _moe_ep's all-reduces, counted (40 layers, 4
-    # micro-batches, 3 forward and 2 backward each)
-    assert rec["collectives"]["counts"]["all-reduce"] == 40 * 4 * 5
-    assert "_moe_ep" in rec["collectives_note"]
+    # the tensor-parallel step's collectives, counted: its all-reduces are
+    # the expert-parallel MoE's 2 a layer (40 layers, 4 micro-batches), the
+    # cross-entropy's 9 a micro-batch (8 chunks and the sum over data) and
+    # the gradients' 2 sums (count_collectives' docstring)
+    assert rec["collectives"]["counts"]["all-reduce"] == 40 * 4 * 2 + 4 * 9 + 2
+    assert "tensor-parallel" in rec["collectives_note"]
     assert rec["model_flops"] == ref_configs.get_cell("dbrx-132b", "train_4k").model_flops
     assert "69.31 GB a device" in capsys.readouterr().out
     assert dryrun.main(["--arch", "dbrx-132b", "--shape", "train_4k",

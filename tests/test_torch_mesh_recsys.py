@@ -136,10 +136,11 @@ _WORKER = textwrap.dedent("""
         m_dlrm.adagrad_rows = per_shard
         step_once(CELLS[0], "fault_per_shard")
         m_dlrm.adagrad_rows = rows
-        sums = steps.sum_grads
-        steps.sum_grads = lambda grads, group, only=None: sums(grads, mesh.group, only)
+        sums = steps.sum_grads_by
+        steps.sum_grads_by = lambda grads, group_of: sums(
+            grads, lambda path: None if group_of(path) is None else mesh.group)
         step_once(CELLS[1], "fault_all_ranks")
-        steps.sum_grads = sums
+        steps.sum_grads_by = sums
 
         # (3) the sharded gather against unsharded lookups
         gen = torch.Generator().manual_seed(5)

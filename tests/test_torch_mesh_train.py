@@ -219,17 +219,47 @@ def test_one_mesh_step_matches_reference(runs):
                                        atol=1e-5 * float(np.abs(ref[k]).max()), err_msg=k)
 
 
-@pytest.mark.parametrize("arch,shape", [("nemotron-4-15b", "train_4k"),
-                                        ("qwen2-0.5b", "train_4k"),
-                                        ("olmoe-1b-7b", "train_4k")])
-def test_mesh_refuses_cells_it_cannot_run(arch, shape):
-    """The LM cells: never on one device in their place, and before any
-    group opens."""
+@pytest.mark.parametrize("argv,match", [
+    (["--arch", "qwen2-0.5b", "--shape", "train_4k", "--mesh", "2by2"], "DATAxMODEL"),
+    (["--arch", "olmoe-1b-7b", "--shape", "train_4k", "--mesh", "0x4"], "at least one rank"),
+    (["--arch", "qwen2-0.5b", "--shape", "prefill_32k", "--mesh", "2x2"], "the mesh trains"),
+    (["--arch", "minicpm3-4b", "--shape", "train_4k", "--mesh", "2x2", "--pure-fsdp"],
+     "pure_fsdp_train")])
+def test_mesh_refuses_cells_it_cannot_run(argv, match, monkeypatch):
+    """What ``--mesh`` still refuses, each before any group opens (so no
+    cell trains on one device in the mesh's place): a mesh spec that does
+    not parse or holds no rank on an axis, a serving shape, and a config
+    that sets ``pure_fsdp_train`` (``--pure-fsdp`` here stands for such a
+    config: the registry holds none)."""
+    import dataclasses
+
     import torch.distributed as dist
 
-    with pytest.raises(ValueError, match="A6.6b"):
-        train.main(["--arch", arch, "--shape", shape, "--mesh", "2x2", "--device", "cpu"])
+    from repro_torch.configs import _module
+
+    if "--pure-fsdp" in argv:
+        argv = [a for a in argv if a != "--pure-fsdp"]
+        mod = _module("minicpm3-4b")
+        make = mod.make_config
+        monkeypatch.setattr(mod, "make_config", lambda reduced=False: dataclasses.replace(
+            make(reduced), pure_fsdp_train=True))
+    with pytest.raises(ValueError, match=match):
+        train.main(argv + ["--device", "cpu"])
     assert not dist.is_initialized()
+
+
+def test_pure_fsdp_config_has_no_mesh_step():
+    """A cell built on a mesh that carries a group from a config with
+    ``pure_fsdp_train`` raises rather than train under other rules."""
+    import dataclasses
+
+    from repro_torch.configs import _families, _module
+    from repro_torch.launch.mesh import make_recording_mesh
+
+    cfg = dataclasses.replace(_module("minicpm3-4b").make_config(), pure_fsdp_train=True)
+    mesh = make_recording_mesh(Mesh({"data": 16, "model": 16}))
+    with pytest.raises(ValueError, match="pure_fsdp_train"):
+        _families.lm_cell("minicpm3-4b", cfg, "train_4k", device="meta", mesh=mesh)
 
 
 # ------------------------------------------------------------ the dry run
@@ -240,7 +270,8 @@ RECSYS_ARCHS = ("xdeepfm", "dlrm-rm2", "mind", "bert4rec")
 
 def _counted(arch, shape):
     return (arch == "dimenet" or arch in EP_ARCHS
-            or (arch in RECSYS_ARCHS and shape == "train_batch"))
+            or (arch in RECSYS_ARCHS and shape == "train_batch")
+            or (arch_family(arch) == "lm" and shape == "train_4k"))
 
 
 def _table() -> dict:
@@ -255,23 +286,59 @@ def _table() -> dict:
             assert note
             if coll is None:
                 assert not _counted(arch, shape), (arch, shape)
-                assert ("A6.6b" in note) == (arch_family(arch) == "lm"), (arch, shape, note)
+                assert "A6.6b" not in note and "serving ignores the mesh" in note, note
                 continue
             assert _counted(arch, shape), (arch, shape)
             out[name][f"{arch}/{shape}"] = coll
     return out
 
 
+LM_ARCHS = ("qwen2-0.5b", "nemotron-4-15b", "olmoe-1b-7b", "dbrx-132b", "minicpm3-4b")
+
+
+def _lm_counts(arch, mesh) -> dict:
+    """An LM ``train_4k`` cell's counts on ``mesh`` by the formula of
+    ``count_collectives``' docstring, from its layers, micro-batches and
+    gates (sequence 4,096 divides every production mesh's ``model``)."""
+    from repro_torch.configs import _module
+
+    cfg = _module(arch).make_config()
+    D, M = mesh.shape["data"], mesh.shape["model"]
+    n_micro, n_c = 4, 4096 // 512
+    heads = cfg.n_heads % M == 0
+    ag, rs, ar = (2, 1, 0) if cfg.vocab % (D * M) == 0 else (int(D > 1), 0, 0)
+    a_ag, a_rs = (3, 3) if heads else (2, 1)
+    if cfg.moe:
+        f_ag, f_rs, f_ar = 3, 2, 2
+    else:
+        f_ag, f_rs, f_ar = (3, 2, 0) if cfg.d_ff % M == 0 else (0, 0, 0)
+    ag += cfg.n_layers * (a_ag + f_ag)
+    rs += cfg.n_layers * (a_rs + f_rs)
+    ar += cfg.n_layers * f_ar
+    if cfg.vocab % M == 0:
+        ag, rs, ar = ag + 1 + 2 * n_c, rs + 1, ar + n_c + int(D > 1)
+    else:
+        ar += 1
+    # the gradients' sums: data (the leaves split over model), the world
+    return {"all-gather": n_micro * ag, "reduce-scatter": n_micro * rs,
+            "all-reduce": n_micro * ar + 1 + int(D > 1), "all-to-all": 0,
+            "collective-permute": 0}
+
+
 def test_dry_run_collectives_present_where_counted():
     """``collectives`` for dimenet's four cells (three flat graphs and
-    ``molecule``), the four recsys train cells and the eight
-    expert-parallel cells on both production meshes, null with its reason
-    elsewhere; equal to ``dryrun_collectives.json``, the table
-    ``chip_smoke.py`` holds the card's dry run to (rewrite it with
-    ``python tests/test_torch_mesh_train.py``)."""
+    ``molecule``), the four recsys train cells, the five LM train cells
+    and the eight expert-parallel serving cells on both production meshes,
+    null with its reason elsewhere; the LM train cells' counts by the
+    formula of ``count_collectives``' docstring; equal to
+    ``dryrun_collectives.json``, the table ``chip_smoke.py`` holds the
+    card's dry run to (rewrite it with ``python
+    tests/test_torch_mesh_train.py``)."""
     table = _table()
     for name in table:
-        assert len(table[name]) == 4 + len(RECSYS_ARCHS) + 4 * len(EP_ARCHS) == 16
+        mesh = make_production_mesh(multi_pod=name == "2x16x16")
+        assert len(table[name]) == (4 + len(RECSYS_ARCHS) + len(LM_ARCHS)
+                                    + 3 * len(EP_ARCHS)) == 19
         for cell, coll in table[name].items():
             assert set(coll) == set(COLLECTIVE_OPS) | {"total", "wire_total", "wire", "counts"}
             arch = cell.split("/")[0]
@@ -282,6 +349,8 @@ def test_dry_run_collectives_present_where_counted():
             elif arch == "dimenet":
                 assert coll["counts"] == {"all-gather": 3, "reduce-scatter": 3, "all-reduce": 2,
                                           "all-to-all": 0, "collective-permute": 0}, cell
+            elif cell.endswith("/train_4k"):
+                assert coll["counts"] == _lm_counts(arch, mesh), cell
             elif arch in RECSYS_ARCHS:
                 # each exchange: a reduce-scatter over data and an all-reduce
                 # over model forward, an all-gather over data backward
@@ -310,7 +379,12 @@ def test_dryrun_cli_writes_collectives(tmp_path, capsys):
     assert dryrun.main(["--arch", "qwen2-0.5b", "--shape", "train_4k",
                         "--out", str(tmp_path)]) == 0
     rec = json.loads((tmp_path / "dryrun_qwen2-0.5b_train_4k_pod.json").read_text())
-    assert rec["collectives"] is None and "A6.6b" in rec["collectives_note"]
+    assert rec["collectives"]["counts"] == _lm_counts("qwen2-0.5b", make_production_mesh())
+    assert "tensor-parallel" in rec["collectives_note"]
+    assert dryrun.main(["--arch", "qwen2-0.5b", "--shape", "prefill_32k",
+                        "--out", str(tmp_path)]) == 0
+    rec = json.loads((tmp_path / "dryrun_qwen2-0.5b_prefill_32k_pod.json").read_text())
+    assert rec["collectives"] is None and "serving ignores the mesh" in rec["collectives_note"]
 
 
 def test_dry_run_count_equals_the_calls_over_gloo(runs):
